@@ -1,0 +1,92 @@
+"""State carried across from the JAX package, as numpy arrays.
+
+The system has no learned weights; what crosses over is the camera rig,
+the IMU parameters, the preintegrated IMU segments and the window problem.
+Every converter takes (or gives) the JAX package's own field names, leaf
+by leaf as numpy arrays, so both packages can compute on identical inputs.
+Nothing here imports JAX: the caller turns the reference's objects into
+dicts of ``np.asarray`` leaves.
+
+Dtypes are kept (float64 stays float64); index leaves become ``int64``
+(torch's index type) on the way in and ``int32`` (the reference's) on the
+way out. ``device=None`` means the CUDA card, as everywhere in the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from okvis2_torch import resolve_device
+from okvis2_torch.cameras import distortion as D
+from okvis2_torch.cameras.pinhole import PinholeCamera
+from okvis2_torch.imu.preintegration import ImuParameters, Preintegrated
+from okvis2_torch.solver.window_problem import WindowProblem
+
+_DISTORTIONS = {
+    cls.__name__: cls
+    for cls in (D.NoDistortion, D.RadialTangentialDistortion,
+                D.RadialTangentialDistortion8, D.EquidistantDistortion)
+}
+# WindowProblem leaves that index states, cameras or landmarks
+_INDEX_FIELDS = ("obs_state", "obs_cam", "obs_lm", "imu_i", "imu_j", "rel_i", "rel_j")
+_PRE_FIELDS = tuple(f.name for f in dataclasses.fields(Preintegrated))
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x), device=device)
+
+
+def camera_from_numpy(d: dict, device=None) -> PinholeCamera:
+    """``{"focal", "center", "image_size", "distortion": class name,
+    "k": distortion parameters}`` -> PinholeCamera."""
+    dev = resolve_device(device)
+    cls = _DISTORTIONS[d["distortion"]]
+    dist = cls() if cls is D.NoDistortion else cls(k=_tensor(d["k"], dev))
+    w, h = d["image_size"]
+    return PinholeCamera(_tensor(d["focal"], dev), _tensor(d["center"], dev),
+                         dist, (int(w), int(h)))
+
+
+def imu_params_from_numpy(d: dict, device=None) -> ImuParameters:
+    dev = resolve_device(device)
+    return ImuParameters(*(_tensor(d[f.name], dev)
+                           for f in dataclasses.fields(ImuParameters)))
+
+
+def preintegrated_from_numpy(d: dict, device=None) -> Preintegrated:
+    dev = resolve_device(device)
+    return Preintegrated(*(_tensor(d[f], dev) for f in _PRE_FIELDS))
+
+
+def problem_from_numpy(fields: dict, device=None) -> WindowProblem:
+    """``WindowProblem._FIELDS`` -> numpy arrays (``imu_pre`` a dict of the
+    Preintegrated fields) -> WindowProblem."""
+    dev = resolve_device(device)
+    kw = {}
+    for f in WindowProblem._FIELDS:
+        v = fields[f]
+        if f == "imu_pre":
+            kw[f] = preintegrated_from_numpy(v, dev)
+        elif f in _INDEX_FIELDS:
+            kw[f] = _tensor(np.asarray(v, np.int64), dev)
+        else:
+            kw[f] = _tensor(v, dev)
+    return WindowProblem(**kw)
+
+
+def problem_to_numpy(problem: WindowProblem) -> dict:
+    """WindowProblem -> ``{field: numpy array}`` with the reference's field
+    names and index dtype (int32); ``imu_pre`` is a dict."""
+    out = {}
+    for f in WindowProblem._FIELDS:
+        v = getattr(problem, f)
+        if f == "imu_pre":
+            out[f] = {g: getattr(v, g).detach().cpu().numpy() for g in _PRE_FIELDS}
+        elif f in _INDEX_FIELDS:
+            out[f] = v.detach().cpu().numpy().astype(np.int32)
+        else:
+            out[f] = v.detach().cpu().numpy()
+    return out

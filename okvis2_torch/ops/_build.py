@@ -1,0 +1,73 @@
+"""Build the port's CUDA source into a shared library, on first use.
+
+The kernel has a plain C interface (an ``extern "C"`` launcher that returns
+``cudaGetLastError()``), so ``nvcc`` compiles it in seconds without
+PyTorch's headers; the library is loaded with ``ctypes``. The build goes to
+``okvis2_torch/_build/<hash of the source and flags>/`` (listed in
+``.gitignore``), so an edited source rebuilds and an unchanged one loads
+the library already built. There is no fallback: without ``nvcc`` or on a
+failed build this raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "okvis2_torch: nvcc not found (PATH or $CUDA_HOME/bin); the CUDA "
+        "kernels are built from okvis2_torch/csrc on first use"
+    )
+
+
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` is built to, keyed by its source and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], f"lib{name}.so")
+
+
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
+    wall seconds spent (0.0 if it was)."""
+    lib = library_path(name)
+    if os.path.exists(lib):
+        return 0.0
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    p = subprocess.run(cmd, capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"okvis2_torch: nvcc failed:\n{' '.join(cmd)}\n{p.stdout}\n{p.stderr}")
+    os.replace(tmp, lib)  # atomic: concurrent builds agree
+    return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library; cached per process."""
+    build(name)
+    return ctypes.CDLL(library_path(name))
