@@ -8,10 +8,12 @@ keypoints per image, a 12-state window) on the card and holds every
 hand-written kernel against its plain PyTorch version:
 
   1. device    the card's name and power limit (nvidia-smi)
-  2. build     the CUDA source okvis2_torch/csrc/harris_nms.cu, with nvcc
+  2. build     the CUDA source okvis2_torch/csrc/harris_nms.cu, with nvcc,
+               and what ptxas reports for it (registers, spills)
   3. kernels   each kernel against its plain version on the same inputs
-               (bit for bit), and both timed with CUDA events, with the
-               L2 flushed before each call and without
+               (bit for bit, at the main path's shape and its octaves),
+               and both timed with CUDA events, with the L2 flushed before
+               each call and without
   4. frontend  detect -> describe -> stereo match at full width, with the
                keypoints held against the plain-Harris chain
   5. solve     a disturbed 12-state / 484-landmark window in float32,
@@ -58,10 +60,11 @@ def cuda_ms(fn, l2_flush=None, batches=10, per_batch=20):
 
     Without ``l2_flush`` the calls run back to back and the time is the
     median batch's CUDA-event time over ``per_batch``: the inputs stay in
-    the card's L2 (a warm L2). With ``l2_flush``, a device buffer larger
-    than the L2, every call is timed alone between its own events after the
-    buffer is overwritten, so it reads its inputs from HBM as a new frame's
-    image would be read (a cold L2); the time is the median call."""
+    the card's L2 (a warm L2). With ``l2_flush``, a callable that evicts the
+    L2 (``buf.zero_`` of a device buffer larger than the L2), every call is
+    timed alone between its own events after it, so it reads its inputs
+    from HBM as a new frame's image would be read (a cold L2); the time is
+    the median call."""
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
@@ -78,7 +81,7 @@ def cuda_ms(fn, l2_flush=None, batches=10, per_batch=20):
             evs[0][1].record()
         else:
             for a, b in evs:
-                l2_flush.zero_()
+                l2_flush()
                 a.record()
                 fn()
                 b.record()
@@ -107,16 +110,37 @@ def phase_build():
     secs = _build.build("harris_nms")
     _build.load_library("harris_nms")
     log(f"[build] okvis2_torch/csrc/harris_nms.cu built with nvcc in {secs:.2f} s")
+    for line in _build.ptxas_report("harris_nms").splitlines():
+        log(f"[build] {line}")
+
+
+def octaves(imgs, n=3):
+    """``imgs`` and its ``n`` 2x2 average-pooled octaves, as detection makes them."""
+    out = [imgs]
+    for _ in range(n):
+        C, h, w = out[-1].shape
+        out.append(out[-1][:, : h // 2 * 2, : w // 2 * 2]
+                   .reshape(C, h // 2, 2, w // 2, 2).mean(dim=(2, 4)))
+    return out
 
 
 def phase_kernels(imgs):
-    """Harris + NMS kernel against its plain version at [2,480,752]. The
-    kernel rounds every operation as the plain version does, so both maps
-    are held bit for bit (tolerance 0); the bar of the JAX package's
-    kernel test (response atol 1e-6 / rtol 1e-4, NMS agreement > 0.9999)
-    would be loose here, where |resp| is mostly far below 1e-6."""
+    """Harris + NMS kernel against its plain version at [2,480,752] and at
+    its octaves [2,240,376], [2,120,188], [2,60,94]. The kernel rounds
+    every operation as the plain version does, so both maps are held bit
+    for bit (tolerance 0); the bar of the JAX package's kernel test
+    (response atol 1e-6 / rtol 1e-4, NMS agreement > 0.9999) would be
+    loose here, where |resp| is mostly far below 1e-6."""
     from okvis2_torch.ops.harris_cuda import harris_nms_cuda, harris_nms_reference
 
+    for x in octaves(imgs)[1:]:
+        rk, nk = harris_nms_cuda(x)
+        rp, np_ = harris_nms_reference(x)
+        torch.cuda.synchronize()
+        assert torch.equal(rk, rp) and torch.equal(nk, np_), (
+            f"harris_nms: maps differ from the plain version at {tuple(x.shape)}, max_abs_err "
+            f"{(rk - rp).abs().max().item():.3e}")
+        log(f"[kernels] harris_nms {list(x.shape)}: resp and NMS equal the plain version")
     resp_k, nms_k = harris_nms_cuda(imgs)
     torch.cuda.synchronize()
     resp_p, nms_p = harris_nms_reference(imgs)
@@ -130,7 +154,7 @@ def phase_kernels(imgs):
     assert torch.equal(nms_k, nms_p), f"harris_nms: NMS map differs, agreement {agree}"
 
     # > 2x the H100's 50 MB L2: overwritten before each cold-L2 call
-    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device=imgs.device)
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device=imgs.device).zero_
     ms = cuda_ms(lambda: harris_nms_cuda(imgs), l2_flush)
     plain_ms = cuda_ms(lambda: harris_nms_reference(imgs), l2_flush)
     ms_warm = cuda_ms(lambda: harris_nms_cuda(imgs))
@@ -150,10 +174,13 @@ def phase_kernels(imgs):
         "ms_warm_l2": ms_warm, "plain_ms_warm_l2": plain_ms_warm,
         "median_abs_resp": median_resp, "nms_agreement": agree,
     }
+    rec["bound_share"] = rec["bound_ms"] / ms  # of the cold-L2 time
+    rec["bytes_per_s"] = bytes_moved / (ms * 1e-3)  # achieved, cold L2
     log(f"[kernels] harris_nms [2,{H},{W}]: max_abs_err {max_abs_err:.3e} (median |resp| "
         f"{median_resp:.3e}), NMS agreement {agree:.6f}; cold L2: kernel {ms * 1e3:.2f} us, "
         f"plain {plain_ms * 1e3:.1f} us; warm L2: kernel {ms_warm * 1e3:.2f} us, plain "
-        f"{plain_ms_warm * 1e3:.1f} us; bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+        f"{plain_ms_warm * 1e3:.1f} us; bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), "
+        f"bound share {rec['bound_share']:.3f}, {rec['bytes_per_s'] / 1e12:.3f} TB/s")
     return [rec]
 
 

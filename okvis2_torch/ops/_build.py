@@ -5,8 +5,10 @@ The kernel has a plain C interface (an ``extern "C"`` launcher that returns
 PyTorch's headers; the library is loaded with ``ctypes``. The build goes to
 ``okvis2_torch/_build/<hash of the source and flags>/`` (listed in
 ``.gitignore``), so an edited source rebuilds and an unchanged one loads
-the library already built. There is no fallback: without ``nvcc`` or on a
-failed build this raises.
+the library already built. ``-Xptxas -v`` is on: the build keeps what
+ptxas reported (registers, shared memory, spills) beside the library, for
+``ptxas_report``. There is no fallback: without ``nvcc`` or on a failed
+build this raises.
 """
 
 from __future__ import annotations
@@ -24,11 +26,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
-def _find_nvcc() -> str:
+def find_nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -39,6 +41,12 @@ def _find_nvcc() -> str:
         "okvis2_torch: nvcc not found (PATH or $CUDA_HOME/bin); the CUDA "
         "kernels are built from okvis2_torch/csrc on first use"
     )
+
+
+def ptxas_lines(nvcc_output: str) -> str:
+    """The lines of ``nvcc -Xptxas -v`` output that ptxas wrote."""
+    return "\n".join(ln.strip() for ln in nvcc_output.splitlines()
+                     if "ptxas" in ln or "spill" in ln)
 
 
 def library_path(name: str) -> str:
@@ -58,12 +66,20 @@ def build(name: str) -> float:
     t0 = time.perf_counter()
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     p = subprocess.run(cmd, capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"okvis2_torch: nvcc failed:\n{' '.join(cmd)}\n{p.stdout}\n{p.stderr}")
+    with open(f"{lib}.ptxas.txt", "w") as f:
+        f.write(ptxas_lines(p.stdout + p.stderr) + "\n")
     os.replace(tmp, lib)  # atomic: concurrent builds agree
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas reported when ``csrc/<name>.cu`` was built."""
+    with open(f"{library_path(name)}.ptxas.txt") as f:
+        return f.read().strip()
 
 
 @functools.lru_cache(maxsize=None)

@@ -88,7 +88,7 @@ def harris_nms_cuda(img: torch.Tensor, k: float = 0.04):
     if not img.is_contiguous():
         raise ValueError("harris_nms_cuda: input must be contiguous")
     C, H, W = img.shape
-    if C == 0 or H == 0 or W == 0 or C > 65535:
+    if C == 0 or H == 0 or W == 0:
         raise ValueError(f"harris_nms_cuda: unsupported shape {tuple(img.shape)}")
     lib = _library()
     resp = torch.empty_like(img)
@@ -99,6 +99,8 @@ def harris_nms_cuda(img: torch.Tensor, k: float = 0.04):
             img.data_ptr(), resp.data_ptr(), nms.data_ptr(),
             C, H, W, float(k), stream,
         )
+    if err == -1:
+        raise ValueError(f"harris_nms_cuda: the kernel's grid cannot hold shape {tuple(img.shape)}")
     if err != 0:
         raise RuntimeError(f"harris_nms_cuda: launch failed (cudaError {err})")
     harris_nms_cuda.launches += 1

@@ -41,11 +41,39 @@ def _check(imgs, k=0.04):
     assert torch.equal(nms_k, nms_p)
 
 
-@pytest.mark.parametrize("shape", [(2, 480, 752), (1, 37, 53), (3, 8, 32), (2, 240, 376)])
+@pytest.mark.parametrize("shape", [
+    (2, 480, 752),   # the main path
+    (2, 240, 376),   # its octaves; W = 94 has W*4 not a multiple of 16
+    (2, 120, 188),
+    (2, 60, 94),
+    (2, 14, 360),    # an exact multiple of the 120-column x 7-row tile
+    (1, 37, 53),     # ragged in both axes
+    (1, 4, 115),     # smaller than one tile in both axes
+    (1, 2, 40),      # H, W <= 3: the 3-px halo wraps onto itself
+    (2, 20, 3),
+    (1, 3, 2),
+    (1, 1, 1),
+    (3, 33, 71),     # C = 3
+], ids=str)
 def test_harris_kernel_matches_plain(cuda, shape):
-    """The main path's shape, a ragged one smaller than a tile in neither
-    axis, one that is exactly one tile, and the second octave's."""
     imgs = torch.tensor(np.random.default_rng(0).random(shape), dtype=torch.float32, device=cuda)
+    _check(imgs)
+
+
+def test_harris_kernel_non_default_k(cuda):
+    imgs = torch.tensor(np.random.default_rng(1).random((2, 64, 96)), dtype=torch.float32,
+                        device=cuda)
+    _check(imgs, k=0.06)
+
+
+@pytest.mark.parametrize("shape", [(2, 60, 94), (2, 48, 64)])
+def test_harris_kernel_misaligned_input(cuda, shape):
+    """A contiguous view whose data pointer is 4 bytes off 16-byte
+    alignment takes the scalar path and still agrees bit for bit."""
+    n = int(np.prod(shape))
+    buf = torch.tensor(np.random.default_rng(2).random(n + 1), dtype=torch.float32, device=cuda)
+    imgs = buf[1:].view(shape)
+    assert imgs.data_ptr() % 16 == 4 and imgs.is_contiguous()
     _check(imgs)
 
 
@@ -63,9 +91,17 @@ def test_harris_kernel_detection_keypoints(cuda):
         assert len(sa & sb) >= 0.99 * len(sb)
 
 
-@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "two_dims"])
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "two_dims", "no_rows", "no_cameras",
+                                 "too_many_cameras"])
 def test_harris_kernel_rejects(cuda, bad):
+    """What the kernel does not take raises ValueError and counts no launch:
+    other types, layouts and ranks, empty shapes (no task to launch), and
+    more cameras than the grid's z extent (65535) holds."""
     x = torch.rand(2, 16, 64, device=cuda)
-    x = {"float64": x.double(), "non_contiguous": x.transpose(1, 2), "two_dims": x[0]}[bad]
+    x = {"float64": x.double(), "non_contiguous": x.transpose(1, 2), "two_dims": x[0],
+         "no_rows": x[:, :0], "no_cameras": x[:0],
+         "too_many_cameras": torch.zeros(65536, 1, 1, device=cuda)}[bad]
+    n0 = harris_cuda.harris_nms_cuda.launches
     with pytest.raises(ValueError):
         harris_cuda.harris_nms_cuda(x)
+    assert harris_cuda.harris_nms_cuda.launches == n0

@@ -132,6 +132,7 @@ def _port_sources():
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not sources
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "harris_bench.py")
 
 
 @pytest.mark.parametrize("path", sorted(os.path.relpath(p, REPO) for p in _port_sources()))
