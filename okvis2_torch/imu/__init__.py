@@ -4,6 +4,7 @@ from okvis2_torch.imu.preintegration import (
     correct_for_bias,
     preintegrate,
     preintegrate_np,
+    propagate_state_np,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "preintegrate",
     "correct_for_bias",
     "preintegrate_np",
+    "propagate_state_np",
 ]

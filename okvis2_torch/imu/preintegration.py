@@ -4,8 +4,8 @@ Port of the parts of ``okvis2_tpu/imu/preintegration.py`` that the window
 solver and ``utils.synthetic.build_problem`` need: ``ImuParameters``,
 ``Preintegrated``, ``preintegrate`` (the reference's ``lax.scan`` becomes a
 loop over the samples, batched over any leading segment axes),
-``correct_for_bias`` and the host mirror ``preintegrate_np`` (numpy, with
-the reference's operation order).
+``correct_for_bias``, and the host mirrors ``preintegrate_np`` and
+``propagate_state_np`` (numpy, with the reference's operation order).
 
 Error-state order [dp, dalpha, dv, dbg, dba]; rotation error is a left
 perturbation on the preintegrated rotation. Bias Jacobians are stored for
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from okvis2_torch import resolve_device
-from okvis2_torch.core import so3
+from okvis2_torch.core import se3_np, so3
 from okvis2_torch.ops.linalg import spd_inverse_sqrt
 
 
@@ -212,6 +212,41 @@ def correct_for_bias(pre: Preintegrated, bg: torch.Tensor, ba: torch.Tensor):
     dv = pre.acc_int + _mv(pre.d_v_dbg, dbg) - _mv(pre.c_int, dba)
     dp = pre.acc_dint + _mv(pre.d_p_dbg, dbg) - _mv(pre.c_dint, dba)
     return dq_corr, dv, dp
+
+
+def propagate_state_np(g, T_WS7, speed_and_bias, gyro, accel, dt):
+    """Pure-numpy dead-reckoning for the per-frame pose prediction, in the
+    reference's operation order (``propagate_state_np``; reference role:
+    ThreadedSlam's propagation for detection, ThreadedSlam.cpp:397-409).
+
+    g: scalar gravity magnitude; T_WS7 numpy [7]; speed_and_bias [9];
+    gyro/accel [N,3]; dt [N]. Returns (T_WS7', speed_and_bias')."""
+    r = T_WS7[:3].astype(np.float64).copy()
+    q = T_WS7[3:7].astype(np.float64).copy()
+    v = speed_and_bias[:3].astype(np.float64).copy()
+    bg = speed_and_bias[3:6]
+    ba = speed_and_bias[6:9]
+    g_W = np.array([0.0, 0.0, -float(g)])
+    for k in range(len(dt)):
+        h = float(dt[k])
+        if h <= 0.0:
+            continue
+        w = gyro[k] - bg
+        a = accel[k] - ba
+        half = 0.5 * w * h
+        ang = np.linalg.norm(half)
+        dq = np.concatenate([
+            half * (np.sinc(ang / np.pi)), [np.cos(ang)]
+        ])
+        q1 = se3_np.quat_mul(q, dq)
+        C = se3_np.quat_to_mat(q)
+        C1 = se3_np.quat_to_mat(q1)
+        acc_w = 0.5 * (C @ a + C1 @ a)
+        r = r + v * h + 0.5 * g_W * h * h + 0.5 * acc_w * h * h
+        v = v + g_W * h + acc_w * h
+        q = q1
+    sb1 = np.concatenate([v, bg, ba])
+    return np.concatenate([r, q]), sb1
 
 
 def preintegrate_np(params, gyro, accel, dt, bg, ba):

@@ -1,7 +1,8 @@
 """State carried across from the JAX package, as numpy arrays.
 
 The system has no learned weights; what crosses over is the camera rig,
-the IMU parameters, the preintegrated IMU segments and the window problem.
+the IMU parameters, the preintegrated IMU segments, the window problem, the
+tracking state (the landmark descriptor table) and the frontend's config.
 Every converter takes (or gives) the JAX package's own field names, leaf
 by leaf as numpy arrays, so both packages can compute on identical inputs.
 Nothing here imports JAX: the caller turns the reference's objects into
@@ -22,7 +23,9 @@ import torch
 from okvis2_torch import resolve_device
 from okvis2_torch.cameras import distortion as D
 from okvis2_torch.cameras.pinhole import PinholeCamera
+from okvis2_torch.frontend.detection import DetectionConfig
 from okvis2_torch.imu.preintegration import ImuParameters, Preintegrated
+from okvis2_torch.pipeline.frontend_pipeline import DeviceLandmarkTable, FrontendConfig
 from okvis2_torch.solver.window_problem import WindowProblem
 
 _DISTORTIONS = {
@@ -90,3 +93,51 @@ def problem_to_numpy(problem: WindowProblem) -> dict:
         else:
             out[f] = v.detach().cpu().numpy()
     return out
+
+
+# DeviceLandmarkTable's state: the device table and the host bookkeeping
+_TABLE_ARRAYS = ("slot_lid", "ring_next", "last_seen")
+
+
+def landmark_table_to_numpy(table: DeviceLandmarkTable) -> dict:
+    """DeviceLandmarkTable -> ``{"capacity", "n_desc", "signs" [cap,K,B],
+    "valid" [cap,K], "slot_lid", "ring_next", "last_seen" [cap], "free"
+    (the free-slot stack, in pop order from the end), "tick",
+    "num_evictions", "upd" [(slot, ring, cam, kp)], "clear" [slot]}``.
+    ``slot_of``/``lid_of`` follow from ``slot_lid``."""
+    out = {"capacity": table.capacity, "n_desc": table.n_desc,
+           "signs": None if table.signs is None else table.signs.detach().cpu().numpy(),
+           "valid": None if table.valid is None else table.valid.detach().cpu().numpy(),
+           "free": list(table.free), "tick": table.tick, "num_evictions": table.num_evictions,
+           "upd": [tuple(u) for u in table._upd], "clear": list(table._clear)}
+    for f in _TABLE_ARRAYS:
+        out[f] = np.array(getattr(table, f))
+    return out
+
+
+def landmark_table_from_numpy(d: dict, device=None) -> DeviceLandmarkTable:
+    """The inverse of ``landmark_table_to_numpy`` (the JAX package's
+    DeviceLandmarkTable has the same attribute names)."""
+    table = DeviceLandmarkTable(int(d["capacity"]), int(d["n_desc"]), device=device)
+    if d["signs"] is not None:
+        table.signs = _tensor(d["signs"], table.device)
+        table.valid = _tensor(np.asarray(d["valid"], bool), table.device)
+    table.slot_lid = np.array(d["slot_lid"], np.int64)
+    table.ring_next = np.array(d["ring_next"], np.int32)
+    table.last_seen = np.array(d["last_seen"], np.int64)
+    table.slot_of = {int(lid): s for s, lid in enumerate(table.slot_lid) if lid >= 0}
+    table.lid_of = {s: lid for lid, s in table.slot_of.items()}
+    table.free = [int(s) for s in d["free"]]
+    table.tick = int(d["tick"])
+    table.num_evictions = int(d["num_evictions"])
+    table._upd = [tuple(int(v) for v in u) for u in d["upd"]]
+    table._clear = [int(s) for s in d["clear"]]
+    return table
+
+
+def frontend_config_from_numpy(d: dict) -> FrontendConfig:
+    """``dataclasses.asdict`` of the JAX package's FrontendConfig (its
+    ``detection`` a dict too) -> FrontendConfig with the same fields."""
+    d = dict(d)
+    det = DetectionConfig(**d.pop("detection"))
+    return FrontendConfig(detection=det, **d)

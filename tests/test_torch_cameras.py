@@ -56,6 +56,19 @@ def test_project_homogeneous(name):
 
 
 @pytest.mark.parametrize("name", MODELS)
+def test_distortion_jacobian_closed_form(name):
+    """Each model's closed-form Jacobian (undistort's Newton steps) equals
+    forward-mode autodiff of its distort, also at and near the centre."""
+    _, tc = _pair(name)
+    rng = np.random.default_rng(5)
+    xy = torch.tensor(np.concatenate([rng.uniform(-0.9, 0.9, (64, 2)),
+                                      [[0.0, 0.0], [1e-9, -2e-9], [1e-4, 3e-4]]]))
+    J = tc.distortion.jacobian(xy)
+    J_ad = torch.func.vmap(torch.func.jacfwd(tc.distortion.distort))(xy)
+    np.testing.assert_allclose(J.numpy(), J_ad.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", MODELS)
 def test_back_project(name):
     jc, tc = _pair(name)
     rng = np.random.default_rng(3)

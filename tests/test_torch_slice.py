@@ -27,6 +27,8 @@ from okvis2_torch.cameras.pinhole import PinholeCamera
 from okvis2_torch.frontend import descriptor as tdesc
 from okvis2_torch.frontend import detection as tdet
 from okvis2_torch.frontend import matching as tmatch
+from okvis2_torch.pipeline import dataset as tds
+from okvis2_torch.pipeline import frontend_pipeline as tfp
 from okvis2_torch.solver import gauss_newton as tgn
 from okvis2_torch.solver.window_problem import SolverConfig as TCfg
 from okvis2_torch.solver.window_problem import WindowProblem as TWP
@@ -119,7 +121,10 @@ def test_chain_window_solve():
 
 def test_import_leaves_jax_out():
     code = ("import sys, okvis2_torch, okvis2_torch.frontend, okvis2_torch.solver, "
-            "okvis2_torch.utils.synthetic, okvis2_torch.interop, okvis2_torch.ops.harris_cuda; "
+            "okvis2_torch.utils.synthetic, okvis2_torch.interop, okvis2_torch.ops.harris_cuda, "
+            "okvis2_torch.frontend.p3p, okvis2_torch.frontend.triangulation, "
+            "okvis2_torch.core.se3_np, okvis2_torch.pipeline.frontend_pipeline, "
+            "okvis2_torch.pipeline.dataset; "
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True)
@@ -156,6 +161,9 @@ DEVICE_NONE_ENTRY_POINTS = {
     "WindowProblem.empty": lambda: TWP.empty(2, 3, 4, 2, 8),
     "imu_params_from_numpy": lambda: interop.imu_params_from_numpy(
         {"sigma_g_c": 1.0, "sigma_a_c": 1.0, "sigma_gw_c": 1.0, "sigma_aw_c": 1.0, "g": 9.81}),
+    "SyntheticDataset": lambda: tds.SyntheticDataset((), (), None),
+    "DeviceLandmarkTable": lambda: tfp.DeviceLandmarkTable(8, 3),
+    "frame_associate": lambda: tfp.frame_associate(*_frame_associate_args()),
 }
 
 
@@ -169,8 +177,22 @@ def test_device_none_raises_without_cuda(name):
         DEVICE_NONE_ENTRY_POINTS[name]()
 
 
+def _frame_associate_args():
+    """frame_associate's positional inputs at a tiny size: 2 cameras of
+    24x32 px, 4 landmarks, an empty table."""
+    cam = PinholeCamera.create(32, 24, 20.0, 20.0, 16.0, 12.0, device="cpu")
+    T_SC = np.tile([0, 0, 0, 0, 0, 0, 1.0], (2, 1))
+    lms = {"hp": np.tile([0, 0, 1.0, 1.0], (4, 1)), "mask": np.ones(4, bool),
+           "init": np.ones(4, bool)}
+    return ((cam, cam), T_SC, np.zeros((2, 24, 32)), T_SC[0], lms, np.zeros((4, 3, 512)),
+            np.zeros((4, 3), bool))
+
+
 def test_harris_nms_has_no_fallback():
     """Only a CPU tensor takes the plain version; any other device goes to
-    the kernel's wrapper or raises."""
+    the kernel's wrapper or raises, also inside frame_associate (no
+    try/except around its detection)."""
     with pytest.raises(ValueError):
         tdet.harris_nms(torch.zeros(1, 8, 8, device="meta"))
+    with pytest.raises(ValueError, match="harris_nms"):
+        tfp.frame_associate(*_frame_associate_args(), device="meta", sampler=lambda *a: None)
