@@ -18,9 +18,10 @@ hand-written kernel against its plain PyTorch version:
                keypoints held against the plain-Harris chain
   5. solve     a disturbed 12-state / 484-landmark window in float32,
                checked against ground truth
-  6. hot path  50 frames of (frontend + 3-iteration solve), as the JAX
-               package's bench.py::bench_hotpath; the kernels' launch
-               counts are zeroed just before and read just after
+  6. hot path  10 frames of (frontend + 3-iteration solve), as the JAX
+               package's bench.py::bench_hotpath (50 frames before the
+               synchronous loop's phase 8 took the time); the kernels'
+               launch counts are zeroed just before and read just after
   7. tracking  the per-frame tracking program (frame_associate: detect,
                describe, back-project, map match + rig P3P RANSAC,
                frame-to-frame, motion stereo) on 21 synthetic frames of the JAX bench's
@@ -29,6 +30,22 @@ hand-written kernel against its plain PyTorch version:
                stereo, frames 1-20 are tracked from the IMU-predicted pose
                and checked against ground truth; launch counts zeroed
                just before and read just after, as in phase 6
+  8. slam      the synchronous SLAM loop (SlamSystem, pipelined=False) at
+               the JAX bench's EuRoC configuration (752x480, 512
+               keypoints, map capacity 1024, a 12-slot window, the
+               realtime budget at 1/200 s), fed through
+               add_imu_measurement / add_images / process_frame, in two
+               drives (SLAM_DRIVES): the bench's 60 frames at 20 Hz, and
+               one circle of 40 frames at 8 Hz with 2 window keyframes,
+               where keyframes become pose-graph factors. Each checks the
+               ATE against ground truth and the JAX package's own ATE on
+               the same frames (tools/e2e_reference_jax.py), the map, the
+               marginalisation (window bound, states eliminated, edges),
+               one Harris launch per frame, and the second every two-pose
+               factor against float64 on the CPU; frames/s, the loop's
+               stage split, LM iterations per solve, and for the first a
+               profiled steady frame. Launch counts are zeroed just before
+               each drive and read just after
 
 Every check raises on failure, so any failing phase exits non-zero. The
 line before the last is the kernels' JSON record; the last line is
@@ -54,7 +71,7 @@ PEAK_F32_FLOPS = 67e12
 HARRIS_OPS_PER_PX = 44
 
 H, W, N_KP = 480, 752, 512
-N_FRAMES = 50
+N_FRAMES = 10
 DEVICE = "cuda"
 # phase 7: frames tracked after frame 0, the bench's map capacity and
 # RANSAC hypotheses (bench.py:155-158), and the bars each tracked frame
@@ -66,6 +83,37 @@ DEVICE = "cuda"
 N_TRACK, TRACK_CAP, TRACK_HYP = 20, 1024, 128
 TRACK_MIN_INLIERS = 30
 TRACK_MAX_POS_M, TRACK_MAX_ROT_DEG = 0.21, 1.0
+# phase 8: two drives of the bench's system, each with the JAX package's
+# aligned ATE, keyframe frames and pose-graph edges on the same frames and
+# configuration (tools/e2e_reference_jax.py, CPU, float32). The ATE bars:
+# below 0.10 m (tests/test_e2e_vio.py:21) and at most 1.5x the JAX ATE
+# plus 5 mm.
+# - "slam": the bench's frame count and warm-up (bench.py:55, :194) on the
+#   default trajectory. The JAX run makes 1 keyframe in these 60 frames (4
+#   in 400, where the star field ends) and so no pose-graph edge:
+#   marginalisation shows here as IMU-frame elimination under the window
+#   bound.
+# - "slam pose graph": one circle (5 s at 8 Hz) with 2 window keyframes in
+#   place of 5, so that keyframes leave the window as pose-graph factors
+#   (the JAX run: keyframes at frames 0, 8, 18, 26 and 37; edges between
+#   states 8-0, 18-8 and 26-18).
+SLAM_DRIVES = {
+    "slam": dict(frames=60, rate=20.0, trajectory="default", num_keyframes=5, warmup=12,
+                 jax_ate_m=0.0034135940286723417, min_edges=0, profile=True),
+    "slam pose graph": dict(frames=40, rate=8.0, trajectory="circle", num_keyframes=2,
+                            warmup=4, jax_ate_m=0.004132954691568989, min_edges=1, profile=False),
+}
+# the two-pose factors of the pose-graph drive (computed in float64 on the
+# card), each computed again on the CPU on the same inputs: relative pose
+# within 1e-12; the information (sqrt_info^T sqrt_info, all the solve
+# sees) within 10x the CPU factor's own change when its landmarks change
+# by 1e-15 of their size, and at least 1e-10, relative to its norm. A
+# factor whose sub-problem holds a landmark seen along one ray (a rank-2
+# block, regularised by 1e-9) moves by up to ~2e-5 under that change, the
+# others by ~1e-13 (tools/two_pose_precision.py); a wrong factor is off by
+# 1e-5 to 4e-2 or more (the same factors computed in float32)
+TWO_POSE_T_TOL, TWO_POSE_INFO_TIMES, TWO_POSE_INFO_FLOOR = 1e-12, 10.0, 1e-10
+SLAM_MIN_LANDMARKS = 50
 
 
 def log(msg):
@@ -573,6 +621,182 @@ def phase_tracking(card):
     return {"harris_nms": launches}
 
 
+def phase_slam(card, name, d):
+    """Phase 8, one drive (``d``: a SLAM_DRIVES entry); returns the
+    kernels' launch counts over its frames."""
+    from okvis2_torch.core.se3 import Transformation
+    from okvis2_torch.frontend import DetectionConfig
+    from okvis2_torch.graph import estimator as est_mod
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.pipeline.dataset import SyntheticDataset
+    from okvis2_torch.pipeline.frontend_pipeline import FrontendConfig
+    from okvis2_torch.pipeline.slam import SlamSystem
+    from okvis2_torch.pipeline.trajectory import ate_rmse
+    from okvis2_torch.utils.timing import Timing
+
+    n_frames, rate, tag = d["frames"], d["rate"], f"[{name}]"
+    cams, T_SC, imu = tracking_rig(DEVICE)
+    exts = [Transformation(r=torch.tensor(T[:3], dtype=torch.float32, device=DEVICE),
+                           q=torch.tensor(T[3:], dtype=torch.float32, device=DEVICE))
+            for T in T_SC]
+    t0 = time.perf_counter()
+    # one frame more than the measured run: the profiled frame (a circle
+    # drive renders exactly its frames: its period is the duration)
+    extra = 1 if d["trajectory"] == "default" else 0
+    ds = SyntheticDataset(cams, exts, imu, n_stars=2500, duration=(n_frames + extra) / rate,
+                          frame_rate=rate, imu_rate=200.0, seed=0, trajectory=d["trajectory"],
+                          device=DEVICE)
+    events = [ev if ev[0] == "imu" else
+              (ev[0], ev[1], [(np.clip(im, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+                              for im in ev[2]], ev[3])
+              for ev in ds.stream()]
+    n_rendered = sum(ev[0] == "images" for ev in events)
+    log(f"{tag} rendered {n_rendered} {W}x{H} stereo frames of 2500 stars on the "
+        f"{d['trajectory']} trajectory at {rate:g} Hz in {time.perf_counter() - t0:.2f} s")
+    assert n_rendered == n_frames + extra, n_rendered
+
+    est_cfg = est_mod.EstimatorConfig(window_slots=12, landmark_slots=512, obs_slots=4096,
+                                      imu_seg_capacity=64, enforce_realtime=True,
+                                      realtime_time_limit=1.0 / 200.0,
+                                      num_keyframes=d["num_keyframes"])
+    fe_cfg = FrontendConfig(detection=DetectionConfig(max_keypoints=N_KP),
+                            map_match_capacity=TRACK_CAP)
+    slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=False, device=DEVICE)
+    est = slam.estimator
+    iterations = []
+    apply_solved = est.apply_solved_flat
+
+    def apply_and_count(*a, **kw):
+        stats = apply_solved(*a, **kw)
+        iterations.append(int(stats["iterations"]))
+        return stats
+
+    est.apply_solved_flat = apply_and_count
+    # each two-pose factor's inputs and output, for the check below
+    factors, two_pose = [], est_mod.compute_two_pose_factor
+
+    def two_pose_and_keep(*a, **kw):
+        out = two_pose(*a, **kw)
+        factors.append(([x.cpu() for x in a[:7]], {k: out[k].cpu() for k in ("T_ij", "sqrt_info")}))
+        return out
+
+    est_mod.compute_two_pose_factor = two_pose_and_keep
+    gen = iter(events)
+
+    def feed_frame():
+        """IMU up to the next frame, then the frame (bench.py:183-189)."""
+        for ev in gen:
+            if ev[0] == "imu":
+                slam.add_imu_measurement(ev[1], ev[2], ev[3])
+                continue
+            slam.add_images(ev[1], ev[2])
+            return ev[1], ev[3]
+        raise AssertionError(f"{name}: the dataset ran out of frames")
+
+    gt, frame_s, windows, kf = [], [], [], []
+    try:
+        torch.cuda.synchronize()
+        harris_nms_cuda.launches = 0
+        for i in range(n_frames):
+            if i == d["warmup"]:
+                Timing.reset()  # the stage split covers the steady frames
+            t_i, pose = feed_frame()
+            ta = time.perf_counter()
+            slam.process_frame()
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - ta)
+            gt.append((t_i, pose))
+            windows.append(len(est.window))
+            kf.append(bool(slam.tracking.is_keyframe))
+        launches = harris_nms_cuda.launches
+    finally:
+        est_mod.compute_two_pose_factor = two_pose
+    stages = {k: Timing.get(k) for k in ("1 frontend (fused)", "0 apply previous solve",
+                                         "2.05 keyframe extras", "3 optimise dispatch",
+                                         "3.1 pack_np", "3.15 upload", "3.2 solve",
+                                         "5 marginalise")}
+
+    traj = est.trajectory()
+    ate = ate_rmse(traj, gt, align=True)
+    poses = np.stack([p for _, p in traj])
+    assert np.isfinite(poses).all() and poses.shape == (n_frames, 7), poses.shape
+    jax_ate = d["jax_ate_m"]
+    bar = 1.5 * jax_ate + 0.005
+    if jax_ate <= 0.10:
+        bar = min(bar, 0.10)
+    edges = [(e.id_i, e.id_j) for e in est.pose_graph_edges]
+    log(f"{tag} {n_frames} frames: ATE {ate:.6f} m (bar {bar:.6f} m; the JAX package on the "
+        f"same frames {jax_ate:.6f} m), keyframes {sum(kf)} at frames "
+        f"{[i for i, k in enumerate(kf) if k]}, landmarks {len(est.landmarks)}, pose-graph "
+        f"edges {len(edges)} {edges}, window max {max(windows)} of {est_cfg.window_slots}, "
+        f"states marginalised {sum(1 for s in est.state_order if not est.states[s].in_window)}")
+    assert ate < bar, f"{name}: ATE {ate:.6f} m against a bar of {bar:.6f} m"
+    assert len(est.landmarks) > SLAM_MIN_LANDMARKS, f"{name}: {len(est.landmarks)} landmarks"
+    assert max(windows) <= est_cfg.window_slots, f"{name}: window sizes {windows}"
+    n_left = sum(1 for s in est.state_order if not est.states[s].in_window)
+    assert n_left >= 1, f"{name}: no state left the window (no marginalisation)"
+    assert len(edges) >= d["min_edges"], f"{name}: {len(edges)} pose-graph edges"
+    assert len(factors) == len(edges), (len(factors), len(edges))
+    n_oct = fe_cfg.detection.octaves
+    assert launches == n_frames * n_oct, (
+        f"harris_nms launched {launches} times in {n_frames} frames x {n_oct} octave")
+    if factors:
+        check_two_pose(tag, factors)
+
+    steady = frame_s[d["warmup"]:]
+    n_steady = len(steady)
+    log(f"{tag} process_frame {n_steady / sum(steady):.3f} frames/s over frames "
+        f"{d['warmup'] + 1}-{n_frames} (median {statistics.median(steady) * 1e3:.3f} ms; "
+        f"first frame {frame_s[0] * 1e3:.1f} ms), harris_nms launches {launches} "
+        f"({n_frames} frames x {n_oct} octave) ({card})")
+    split = {k: {"ms_per_frame": (s.total / n_steady * 1e3) if s else 0.0,
+                 "calls": s.n if s else 0} for k, s in stages.items()}
+    log(f"{tag} stage split over the steady frames " + json.dumps(
+        {k: {"ms_per_frame": round(v["ms_per_frame"], 3), "calls": v["calls"]}
+         for k, v in split.items()}))
+    log(f"{tag} LM iterations per applied solve: first {iterations[:3]}, steady "
+        f"{sorted(set(iterations[d['warmup']:]))}, mean {statistics.mean(iterations):.2f} over "
+        f"{len(iterations)} solves")
+
+    if d["profile"]:
+        def steady_frame():
+            feed_frame()
+            slam.process_frame()
+
+        profile_frame(steady_frame)
+    return {"harris_nms": launches}
+
+
+def check_two_pose(tag, factors):
+    """Each two-pose factor the card made, against the same function on the
+    CPU on the same inputs."""
+    from okvis2_torch.factors.two_pose import compute_two_pose_factor
+
+    cams32, _, _ = tracking_rig("cpu")
+    info = lambda s: s.double().T @ s.double()  # noqa: E731
+    rel = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))  # noqa: E731
+    gen = torch.Generator().manual_seed(0)
+    worst_t = worst_i = worst_r = 0.0
+    for args, got in factors:
+        ref = compute_two_pose_factor(*args, cams32)
+        d_t = float((got["T_ij"].double() - ref["T_ij"]).abs().max())
+        d_i = rel(info(got["sqrt_info"]), info(ref["sqrt_info"]))
+        hp = args[3].double()
+        moved = compute_two_pose_factor(
+            *args[:3], hp * (1 + 1e-15 * torch.randn(hp.shape, generator=gen, dtype=hp.dtype)),
+            *args[4:], cams32)
+        bar = max(TWO_POSE_INFO_FLOOR,
+                  TWO_POSE_INFO_TIMES * rel(info(moved["sqrt_info"]), info(ref["sqrt_info"])))
+        worst_t, worst_i, worst_r = max(worst_t, d_t), max(worst_i, d_i), max(worst_r, d_i / bar)
+        assert d_t < TWO_POSE_T_TOL and d_i < bar, (
+            f"two-pose factor: T_ij off by {d_t:.3e}, information by {d_i:.3e} (relative; "
+            f"bar {bar:.3e})")
+    log(f"{tag} {len(factors)} two-pose factors against the CPU: T_ij within "
+        f"{worst_t:.3e} (bar {TWO_POSE_T_TOL:g}), information within {worst_i:.3e} of its norm, "
+        f"at most {worst_r:.3f} of its bar ({TWO_POSE_INFO_TIMES:g}x the CPU factor's change "
+        f"when its landmarks move by 1e-15, at least {TWO_POSE_INFO_FLOOR:g})")
+
+
 def time_stages(stages):
     """{name: ms of one call}, each stage alone and synchronised: one
     warm-up call, then the mean of 10."""
@@ -589,7 +813,7 @@ def time_stages(stages):
 
 
 def profile_frame(frame):
-    """One hot-path frame under torch.profiler: device kernels launched,
+    """One frame under torch.profiler: device kernels launched,
     device-busy time against the frame's wall time, the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -627,10 +851,12 @@ def main():
     window = phase_solve()
     launches = phase_hotpath(imgs, det_cfg, window, card)
     launches_tracking = phase_tracking(card)
+    launches_slam = {name: phase_slam(card, name, d) for name, d in SLAM_DRIVES.items()}
     for k in kernels:
-        k["launches"] = launches[k["name"]] + launches_tracking[k["name"]]
-        k["launches_by_phase"] = {"hot path": launches[k["name"]],
-                                  "tracking": launches_tracking[k["name"]]}
+        by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
+        by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})
+        k["launches"] = sum(by_phase.values())
+        k["launches_by_phase"] = by_phase
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

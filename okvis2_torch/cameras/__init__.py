@@ -6,6 +6,7 @@ from okvis2_torch.cameras.distortion import (
     RadialTangentialDistortion8,
     distortion_by_name,
 )
+from okvis2_torch.cameras.ncamera import NCameraSystem
 from okvis2_torch.cameras.pinhole import PinholeCamera
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "RadialTangentialDistortion8",
     "distortion_by_name",
     "PinholeCamera",
+    "NCameraSystem",
 ]

@@ -69,6 +69,15 @@ class Distortion:
         return dataclasses.replace(self, k=k)
 
 
+def _split(v: torch.Tensor, n: int):
+    """The ``n`` entries of ``v``'s last axis as [..., 1] slices. ``distort``
+    computes on these, not on 0-d entries: under ``torch.func.jacfwd`` a
+    Python scalar combined with a 0-d float32 tensor gives float64 tangents
+    (torch 2.13), which would carry float64 into a float32 solve's
+    Jacobians."""
+    return [v[..., i:i + 1] for i in range(n)]
+
+
 def _mat2(a, b, c, d):
     """[[a, b], [c, d]] over leading dims."""
     return torch.stack([torch.stack([a, b], dim=-1), torch.stack([c, d], dim=-1)], dim=-2)
@@ -118,14 +127,14 @@ class RadialTangentialDistortion(Distortion):
         return cls(k=torch.as_tensor(p, dtype=dtype, device=device))
 
     def distort(self, xy):
-        k1, k2, p1, p2 = self.k[..., 0], self.k[..., 1], self.k[..., 2], self.k[..., 3]
-        x, y = xy[..., 0], xy[..., 1]
+        k1, k2, p1, p2 = _split(self.k, 4)
+        x, y = _split(xy, 2)
         x2, y2, xy_ = x * x, y * y, x * y
         r2 = x2 + y2
         rad = 1.0 + r2 * (k1 + k2 * r2)
         xd = x * rad + 2.0 * p1 * xy_ + p2 * (r2 + 2.0 * x2)
         yd = y * rad + 2.0 * p2 * xy_ + p1 * (r2 + 2.0 * y2)
-        return torch.stack([xd, yd], dim=-1)
+        return torch.cat([xd, yd], dim=-1)
 
     def jacobian(self, xy):
         k1, k2, p1, p2 = self.k[..., 0], self.k[..., 1], self.k[..., 2], self.k[..., 3]
@@ -149,9 +158,8 @@ class RadialTangentialDistortion8(Distortion):
         return cls(k=torch.as_tensor(p, dtype=dtype, device=device))
 
     def distort(self, xy):
-        k1, k2, p1, p2 = self.k[..., 0], self.k[..., 1], self.k[..., 2], self.k[..., 3]
-        k3, k4, k5, k6 = self.k[..., 4], self.k[..., 5], self.k[..., 6], self.k[..., 7]
-        x, y = xy[..., 0], xy[..., 1]
+        k1, k2, p1, p2, k3, k4, k5, k6 = _split(self.k, 8)
+        x, y = _split(xy, 2)
         x2, y2, xy_ = x * x, y * y, x * y
         r2 = x2 + y2
         num = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
@@ -159,7 +167,7 @@ class RadialTangentialDistortion8(Distortion):
         rad = num / den
         xd = x * rad + 2.0 * p1 * xy_ + p2 * (r2 + 2.0 * x2)
         yd = y * rad + 2.0 * p2 * xy_ + p1 * (r2 + 2.0 * y2)
-        return torch.stack([xd, yd], dim=-1)
+        return torch.cat([xd, yd], dim=-1)
 
     def jacobian(self, xy):
         k1, k2, p1, p2 = self.k[..., 0], self.k[..., 1], self.k[..., 2], self.k[..., 3]
@@ -189,8 +197,8 @@ class EquidistantDistortion(Distortion):
         return cls(k=torch.as_tensor(p, dtype=dtype, device=device))
 
     def distort(self, xy):
-        k1, k2, k3, k4 = self.k[..., 0], self.k[..., 1], self.k[..., 2], self.k[..., 3]
-        x, y = xy[..., 0], xy[..., 1]
+        k1, k2, k3, k4 = _split(self.k, 4)
+        x, y = _split(xy, 2)
         r2 = x * x + y * y
         r = torch.sqrt(r2)
         theta = torch.atan(r)
@@ -199,7 +207,7 @@ class EquidistantDistortion(Distortion):
         big = r > 1e-8
         safe_r = torch.where(big, r, torch.ones_like(r))
         scaling = torch.where(big, thetad / safe_r, torch.ones_like(r))
-        return xy * scaling[..., None]
+        return xy * scaling
 
     def jacobian(self, xy):
         """d (xy s(r)) = s I + (s'(r) / r) xy xy^T, s = thetad / r; the

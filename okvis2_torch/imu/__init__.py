@@ -2,6 +2,7 @@ from okvis2_torch.imu.preintegration import (
     ImuParameters,
     Preintegrated,
     correct_for_bias,
+    init_pose_from_accel,
     preintegrate,
     preintegrate_np,
     propagate_state_np,
@@ -12,6 +13,7 @@ __all__ = [
     "Preintegrated",
     "preintegrate",
     "correct_for_bias",
+    "init_pose_from_accel",
     "preintegrate_np",
     "propagate_state_np",
 ]

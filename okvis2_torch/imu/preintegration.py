@@ -4,8 +4,9 @@ Port of the parts of ``okvis2_tpu/imu/preintegration.py`` that the window
 solver and ``utils.synthetic.build_problem`` need: ``ImuParameters``,
 ``Preintegrated``, ``preintegrate`` (the reference's ``lax.scan`` becomes a
 loop over the samples, batched over any leading segment axes),
-``correct_for_bias``, and the host mirrors ``preintegrate_np`` and
-``propagate_state_np`` (numpy, with the reference's operation order).
+``correct_for_bias``, the host mirrors ``preintegrate_np`` and
+``propagate_state_np`` (numpy, with the reference's operation order), and
+``init_pose_from_accel`` (the estimator's gravity-aligned first pose).
 
 Error-state order [dp, dalpha, dv, dbg, dba]; rotation error is a left
 perturbation on the preintegrated rotation. Bias Jacobians are stored for
@@ -22,6 +23,7 @@ import torch
 
 from okvis2_torch import resolve_device
 from okvis2_torch.core import se3_np, so3
+from okvis2_torch.core.se3 import Transformation
 from okvis2_torch.ops.linalg import spd_inverse_sqrt
 
 
@@ -430,3 +432,21 @@ def preintegrate_np(params, gyro, accel, dt, bg, ba):
         bg_lin=bg,
         ba_lin=ba,
     )
+
+
+def init_pose_from_accel(accel_mean: torch.Tensor) -> Transformation:
+    """Gravity-aligned initial pose (reference ImuError::initPose,
+    ImuError.cpp:781-809): the q_WS that maps the measured specific force
+    (about +g, up, in the sensor frame) to world +z; yaw is 0."""
+    a = accel_mean / torch.linalg.norm(accel_mean)
+    z_w = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device)
+    # rotation taking sensor-frame 'up' (a) to world z
+    v = torch.linalg.cross(a, z_w, dim=-1)
+    c = torch.dot(a, z_w)
+    s = torch.linalg.norm(v)
+    safe_s = torch.where(s > 1e-9, s, torch.ones_like(s))
+    angle = torch.atan2(s, c)
+    axis = torch.where(s > 1e-9, v / safe_s,
+                       torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device))
+    q_WS = so3.delta_q(axis * angle)
+    return Transformation(r=torch.zeros(3, dtype=a.dtype, device=a.device), q=q_WS)

@@ -2,7 +2,8 @@
 
 The system has no learned weights; what crosses over is the camera rig,
 the IMU parameters, the preintegrated IMU segments, the window problem, the
-tracking state (the landmark descriptor table) and the frontend's config.
+tracking state (the landmark descriptor table), the frontend's and the
+estimator's configs, and the estimator's host records.
 Every converter takes (or gives) the JAX package's own field names, leaf
 by leaf as numpy arrays, so both packages can compute on identical inputs.
 Nothing here imports JAX: the caller turns the reference's objects into
@@ -24,6 +25,7 @@ from okvis2_torch import resolve_device
 from okvis2_torch.cameras import distortion as D
 from okvis2_torch.cameras.pinhole import PinholeCamera
 from okvis2_torch.frontend.detection import DetectionConfig
+from okvis2_torch.graph.estimator import EstimatorConfig
 from okvis2_torch.imu.preintegration import ImuParameters, Preintegrated
 from okvis2_torch.pipeline.frontend_pipeline import DeviceLandmarkTable, FrontendConfig
 from okvis2_torch.solver.window_problem import WindowProblem
@@ -141,3 +143,43 @@ def frontend_config_from_numpy(d: dict) -> FrontendConfig:
     d = dict(d)
     det = DetectionConfig(**d.pop("detection"))
     return FrontendConfig(detection=det, **d)
+
+
+def estimator_config_from_numpy(d: dict) -> EstimatorConfig:
+    """``dataclasses.asdict`` of the JAX package's EstimatorConfig ->
+    EstimatorConfig with the same fields."""
+    return EstimatorConfig(**d)
+
+
+def estimator_records_to_numpy(est) -> dict:
+    """An estimator's host records as plain Python and numpy under the JAX
+    package's field names; both packages' ``Estimator`` have the same
+    attributes, so this reads either:
+
+    ``{"window": [sid], "state_order": [sid], "states": {sid: {"t",
+    "pose", "speed_bias", "is_keyframe", "in_window", "frozen",
+    "is_pose_graph_frame", "imu_from", "n_imu", "anchor_id",
+    "T_anchor7"}}, "landmarks": {lid: {"hp_W", "initialised", "quality",
+    "info_scale", "obs": {(sid, cam, kp): (u, v, size)}}},
+    "pose_graph_edges": [{"id_i", "id_j", "kind", "T_ij", "sqrt_info",
+    "stored_obs"}]}``."""
+    states = {}
+    for sid, r in est.states.items():
+        states[int(sid)] = {
+            "t": float(r.t), "pose": np.array(r.pose), "speed_bias": np.array(r.speed_bias),
+            "is_keyframe": bool(r.is_keyframe), "in_window": bool(r.in_window),
+            "frozen": bool(r.frozen), "is_pose_graph_frame": bool(r.is_pose_graph_frame),
+            "imu_from": r.imu_from, "n_imu": len(r.imu_dt), "anchor_id": r.anchor_id,
+            "T_anchor7": None if r.T_anchor7 is None else np.array(r.T_anchor7),
+        }
+    landmarks = {
+        int(lid): {"hp_W": np.array(lm.hp_W), "initialised": bool(lm.initialised),
+                   "quality": float(lm.quality), "info_scale": float(lm.info_scale),
+                   "obs": dict(lm.obs)}
+        for lid, lm in est.landmarks.items()
+    }
+    edges = [{"id_i": e.id_i, "id_j": e.id_j, "kind": e.kind, "T_ij": np.array(e.T_ij),
+              "sqrt_info": np.array(e.sqrt_info), "stored_obs": list(e.stored_obs)}
+             for e in est.pose_graph_edges]
+    return {"window": list(est.window), "state_order": list(est.state_order),
+            "states": states, "landmarks": landmarks, "pose_graph_edges": edges}

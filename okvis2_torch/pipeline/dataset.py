@@ -1,13 +1,14 @@
 """Synthetic dataset: a deterministic textured world along an analytic
 trajectory, with exact IMU.
 
-Port of ``okvis2_tpu/pipeline/dataset.py::SyntheticDataset`` (default
-trajectory only). The world is a field of small textured squares
-("stars") drawn with the same numpy ``default_rng(seed)`` calls in the same
-order as the JAX package, so one seed gives one world. Each frame projects
+Port of ``okvis2_tpu/pipeline/dataset.py::SyntheticDataset`` (the
+default and the circle trajectory). The world is a field of small
+textured squares ("stars") drawn with the same numpy ``default_rng(seed)``
+calls in the same order as the JAX package, so one seed gives one world. Each frame projects
 the stars into every camera with the port's ``Transformation`` and
 ``PinholeCamera`` on the device, then paints them in numpy. Trajectory and
-IMU come from ``utils/synthetic.true_state`` / ``imu_at``.
+IMU come from ``utils/synthetic.true_state`` / ``imu_at``, or from
+``utils/synthetic.CircleTrajectory`` with one circle per ``duration``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from okvis2_torch.utils import synthetic
 
 
 class SyntheticDataset:
-    """Renders every camera of a rig along the canonical test trajectory.
+    """Renders every camera of a rig along the canonical test trajectory
+    (``trajectory="default"``) or one circle (``"circle"``).
 
     ``cameras``/``extrinsics``: PinholeCamera and Transformation per
     camera; ``imu_params``: ImuParameters. Runs on ``device`` (None: the
@@ -34,9 +36,10 @@ class SyntheticDataset:
                  duration: float = 10.0, frame_rate: float = 10.0, imu_rate: float = 200.0,
                  seed: int = 0, imu_noise: float = 0.0, trajectory: str = "default",
                  device=None):
-        if trajectory != "default":
-            raise NotImplementedError(f"trajectory {trajectory!r}: only 'default' is ported")
+        if trajectory not in ("default", "circle"):
+            raise ValueError(f"trajectory {trajectory!r}")
         self.device = resolve_device(device)
+        self.syn = synthetic.CircleTrajectory(duration) if trajectory == "circle" else synthetic
         self.cameras = cameras
         self.extrinsics = extrinsics
         self.imu_params = imu_params
@@ -98,7 +101,7 @@ class SyntheticDataset:
         imu_dt = 1.0 / self.imu_rate
         n_imu = int(np.ceil((n_frames - 1) / self.frame_rate / imu_dt)) + 2
         ts_imu = np.arange(n_imu) * imu_dt
-        w_all, a_all = vmap(lambda tt: synthetic.imu_at(tt, self.imu_params))(
+        w_all, a_all = vmap(lambda tt: self.syn.imu_at(tt, self.imu_params))(
             torch.as_tensor(ts_imu, dtype=torch.float64, device=self.imu_params.g.device))
         w_all, a_all = w_all.cpu().numpy(), a_all.cpu().numpy()
         ts_frame = np.arange(n_frames) / self.frame_rate
@@ -116,5 +119,5 @@ class SyntheticDataset:
             yield ("images", t, self.render(pose), pose)
 
     def ground_truth(self, t: float) -> np.ndarray:
-        T_gt, _ = synthetic.true_state(t, device=self.device)
+        T_gt, _ = self.syn.true_state(t, device=self.device)
         return torch.cat([T_gt.r, T_gt.q]).cpu().numpy()

@@ -32,13 +32,16 @@ import numpy as np
 import torch
 
 from okvis2_torch import resolve_device
+from okvis2_torch.core import se3_np
 from okvis2_torch.core.se3 import Transformation
 from okvis2_torch.frontend.descriptor import describe_keypoints
 from okvis2_torch.frontend.detection import DetectionConfig, detect_keypoints_batch
 from okvis2_torch.frontend.matching import hamming_distance_matrix, match_descriptors
 from okvis2_torch.frontend.p3p import _det3, ransac_rig_pose_from_samples, sample_hypotheses
 from okvis2_torch.frontend.triangulation import triangulate_in_frames
+from okvis2_torch.graph.estimator import _warn_capacity
 from okvis2_torch.ops.linalg import inv3x3
+from okvis2_torch.utils.timing import SwitchableTimer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,7 +334,8 @@ def frame_associate(cameras, T_SC7, images, T_WS7, landmarks, tab_signs, tab_val
     """The per-frame tracking program (``_frame_associate_body``).
 
     cameras: one PinholeCamera per camera; T_SC7 [NC,7] extrinsics;
-    images [NC,H,W] float in [0,1] (uint8 widens to float32); T_WS7 [7]
+    images [NC,H,W] float in [0,1] (uint8 widens to the cameras' dtype:
+    float32 on the card); T_WS7 [7]
     the predicted body pose. ``landmarks``: {"hp" [Lc,4], "mask" [Lc],
     "init" [Lc] (RANSAC-eligible)}; tab_signs [Lc,K,B], tab_valid [Lc,K]
     the descriptor table. Optional, keyword-only:
@@ -359,7 +363,7 @@ def frame_associate(cameras, T_SC7, images, T_WS7, landmarks, tab_signs, tab_val
     dev = resolve_device(device)
     images = torch.as_tensor(images, device=dev)
     if images.dtype == torch.uint8:
-        images = images.to(torch.float32) * (1.0 / 255.0)
+        images = images.to(cameras[0].focal.dtype) * (1.0 / 255.0)
     dtype = images.dtype
 
     def t(x, dt=dtype):
@@ -567,3 +571,588 @@ class DeviceLandmarkTable:
             upd = torch.as_tensor(self.drain(upd_capacity), device=self.device)
             self.signs, self.valid = _table_update_body(self.signs, self.valid,
                                                         kp_signs_device, upd)
+
+
+class Frontend:
+    """The frontend's host half around ``frame_associate`` (port of the
+    synchronous parts of the JAX package's ``Frontend``): per frame,
+    ``prepare_frame`` builds the program's inputs from the estimator's
+    records (predicted pose, the landmark table's points, the top-K
+    overlap-ranked keyframes, the previous frame's keypoints, the staged
+    descriptor updates), ``frame_associate`` runs on the device, and
+    ``finish_frame`` inserts observations and landmarks. Keyframes add
+    static stereo, the descriptor fetch and the keyframe store.
+
+    The program and its per-frame inputs run at the cameras' precision:
+    float32 on the card, as the JAX package's frame program and its
+    float32 carrier.
+    ``ransac_sampler(frame_counter)`` may return the frame's RANSAC
+    sampler (see ``frame_associate``); without one, or when it returns
+    None, hypotheses come from the frontend's generator (seeded 42).
+    Runs on ``device`` (None: the CUDA card; raises without one)."""
+
+    def __init__(self, cameras, extrinsics, config: FrontendConfig = FrontendConfig(),
+                 device=None, ransac_sampler=None):
+        self.device = resolve_device(device)
+        self.cameras = tuple(c.to(device=self.device) for c in cameras)
+        self.extrinsics = list(extrinsics)
+        # numpy copies for host-side composition
+        self.T_SC_np = [torch.cat([T.r, T.q]).detach().cpu().numpy().astype(np.float64)
+                        for T in extrinsics]
+        self.cfg = config
+        # landmark id -> latest descriptor signs (numpy; map export and
+        # loop-closure verification), and up to 3 distinct bit-packed
+        # variants per landmark; matching uses the device table below
+        self.lm_descriptors: Dict[int, np.ndarray] = {}
+        self.lm_desc_sets: Dict[int, list] = {}
+        self.table = DeviceLandmarkTable(config.map_match_capacity, config.n_desc_per_lm,
+                                         device=self.device)
+        self.ransac_sampler = ransac_sampler
+        self._gen = torch.Generator(device=self.device).manual_seed(42)
+        self.last_keyframe_id: Optional[int] = None
+        self.last_ransac = {"num_inliers": 0, "ok": False}
+        self._desc_stage: List[tuple] = []
+        self._kf_store: Dict[int, list] = {}
+        self._frame_counter = 0
+        self._ff_prev = None  # the previous dispatch's device keypoints
+        self._staged_signs_dev = None  # the signs the staged updates index
+        self._overlap_pairs = None
+        self._disk_offs_cache: Dict[int, np.ndarray] = {}
+
+    # ------------------------------------------------------------------
+    def associate_frame(self, estimator, images, sid: int, T_WS_pred7: np.ndarray,
+                        extra_flat=None):
+        """THE per-frame frontend entry: prepare -> ``frame_associate`` ->
+        ``finish_frame`` (the detectAndDescribe -> matchToMap ->
+        runRansac3d2d -> matchMotionStereo sequence, Frontend.cpp:221-269,
+        558-1015). ``extra_flat``, the previous frame's solve output, is
+        read back with the frame's outputs at their precision (float32 on
+        the card), as the JAX package's loop reads it through the frame's
+        one readback; it comes back as ``info["extra"]``. Returns (frames,
+        info)."""
+        prep = self.prepare_frame(estimator, images, sid, T_WS_pred7)
+        out = frame_associate(
+            self.cameras, np.stack(self.T_SC_np), prep["imgs_u8"], T_WS_pred7,
+            prep["landmarks"], self.table.signs, self.table.valid, self.cfg,
+            staged=prep["staged"], keyframes=prep["keyframes"], prev=prep["prev"],
+            generator=self._gen, sampler=prep["sampler"], device=self.device)
+        ctx = self._adopt_dispatch(prep, out)
+        if extra_flat is not None:
+            ctx["extra"] = torch.as_tensor(extra_flat).to(out["xy"].dtype).cpu().numpy()
+        return self.finish_frame(estimator, ctx, out)
+
+    def prepare_frame(self, estimator, images, sid: int, T_WS_pred7: np.ndarray):
+        """``frame_associate``'s inputs from the host records: the images
+        quantised to uint8 (the program widens them), the landmark table's
+        points, masks and initialised flags, the top-K
+        overlap-ranked keyframes with their free keypoints, the previous
+        dispatch's keypoints, the descriptor updates staged by the
+        previous frame's bookkeeping, and this frame's RANSAC sampler."""
+        from okvis2_torch.frontend.descriptor import DESCRIPTOR_BITS
+
+        cfg = self.cfg
+        with SwitchableTimer("1.1 prep: sync table"):
+            self._sync_table(estimator)
+        # host descriptor copies resolve only when this frame's signs are
+        # fetched (keyframes): reset per frame
+        self._desc_stage = []
+        table = self.table
+        NC = len(self.cameras)
+        N = cfg.detection.max_keypoints
+        with SwitchableTimer("1.2 prep: stack+quantise imgs"):
+            imgs = np.stack(images)
+            if imgs.dtype != np.uint8:
+                imgs = (np.clip(imgs, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        fdtype = self.cameras[0].focal.dtype  # the program's precision
+        table.ensure(DESCRIPTOR_BITS, fdtype)
+
+        cap = table.capacity
+        KF = cfg.motion_stereo_keyframes
+        _t_tbl = SwitchableTimer("1.3 prep: landmark table fill")
+        _t_tbl.__enter__()
+        hp = np.zeros((cap, 4))
+        hp[:, 3] = 1.0
+        lm_mask = np.zeros(cap, bool)
+        lm_init = np.zeros(cap, bool)
+        for lid, s in table.slot_of.items():
+            lm = estimator.landmarks.get(lid)
+            if lm is None:
+                continue
+            hp[s] = lm.hp_W
+            lm_mask[s] = True
+            lm_init[s] = lm.initialised
+        _t_tbl.__exit__(None, None, None)
+
+        # top-K overlap-ranked keyframes for motion stereo (Frontend.cpp:
+        # 1742-1768); only the keyframes that exist go to the program
+        with SwitchableTimer("1.4 prep: rank keyframes"):
+            top_ids = self._rank_keyframes_by_overlap(estimator, T_WS_pred7, sid, hp, lm_mask,
+                                                      KF)
+        keyframes = None
+        with SwitchableTimer("1.5 prep: kf stacks"):
+            if top_ids:
+                free = np.zeros((len(top_ids), NC, N), bool)
+                T_kf = np.zeros((len(top_ids), 7))
+                for k, kid in enumerate(top_ids):
+                    kfr = self._kf_store[kid]
+                    f = np.stack([fr["mask"] for fr in kfr]).copy()
+                    for (_l, c, kp) in estimator.obs_of_state(kid):
+                        if kp < N:
+                            f[c, kp] = False
+                    free[k] = f
+                    T_kf[k] = estimator.states[kid].pose
+                keyframes = {
+                    "xy": torch.stack([self._kf_store[k][0]["stacked"]["xy"] for k in top_ids]),
+                    "signs": torch.stack([self._kf_store[k][0]["stacked"]["signs"]
+                                          for k in top_ids]),
+                    "free": free, "valid": np.ones(len(top_ids), bool), "T_WS7": T_kf,
+                }
+        self._frame_counter += 1
+        # descriptor-table updates staged by the previous frame's
+        # bookkeeping fold into this frame's program
+        upd = table.drain(_FLUSH_U)
+        src = self._staged_signs_dev
+        if src is None:
+            src = torch.zeros((NC, N, DESCRIPTOR_BITS), dtype=fdtype, device=self.device)
+        ffp = self._ff_prev
+        do_ff = ffp is not None and ffp["sid"] in estimator.states
+        prev = None
+        if do_ff:
+            prev = {"xy": ffp["xy"], "signs": ffp["signs"], "mask": ffp["mask"],
+                    "T_WS7": estimator.states[ffp["sid"]].pose}
+        sampler = None if self.ransac_sampler is None else self.ransac_sampler(self._frame_counter)
+        return {
+            "sid": sid, "imgs_u8": imgs,
+            "landmarks": {"hp": hp, "mask": lm_mask, "init": lm_init},
+            "keyframes": keyframes, "top_ids": top_ids, "do_ms": bool(top_ids),
+            "staged": {"signs": src, "upd": upd}, "prev": prev,
+            "ff_prev_sid": ffp["sid"] if do_ff else None, "sampler": sampler,
+            "NC": NC, "N": N, "cap": cap,
+            # the match rows reference table slots as of this prep
+            "slot_of": dict(table.slot_of),
+        }
+
+    def _adopt_dispatch(self, prep, out):
+        """Adopt the program's folded descriptor table; this dispatch's
+        keypoints become the next one's frame-to-frame source."""
+        table = self.table
+        table.signs = out["tab_signs"]
+        table.valid = out["tab_valid"]
+        if not table._upd:
+            # all descriptor writes consumed
+            self._staged_signs_dev = None
+        stacked = {"xy": out["xy"], "mask": out["mask"], "signs": out["signs"],
+                   "signs_packed": out["signs_packed"]}
+        self._ff_prev = {"sid": prep["sid"], "xy": out["xy"], "signs": out["signs"],
+                         "mask": out["mask"]}
+        return {"sid": prep["sid"], "stacked": stacked, "do_ms": prep["do_ms"],
+                "top_ids": prep["top_ids"], "ff_prev_sid": prep["ff_prev_sid"],
+                "NC": prep["NC"], "N": prep["N"], "cap": prep["cap"],
+                "slot_of": prep["slot_of"]}
+
+    def finish_frame(self, estimator, ctx, out):
+        """Read the program's outputs back and do the host bookkeeping:
+        observations of the RANSAC survivors, frame-to-frame continuity,
+        motion-stereo landmarks, descriptor staging (Frontend.cpp:
+        558-1015). Returns (frames, info)."""
+        cfg = self.cfg
+        table = self.table
+        # leftovers the last fold could not take index an older frame's
+        # signs: flush them before this frame's staging starts
+        if table._upd:
+            self._flush_staged()
+        self._desc_stage = []
+        sid = ctx["sid"]
+        stacked = ctx["stacked"]
+        top_ids = ctx["top_ids"]
+        NC = ctx["NC"]
+
+        xy, size, kp_mask, idx, keep, ms_rows, ff_rows = (
+            out[k].cpu().numpy() for k in ("xy", "size", "mask", "idx", "keep", "ms_rows",
+                                           "ff_rows"))
+        n_inl, ransac_ok = int(out["n_inl"]), bool(out["ransac_ok"])
+        rot_frac = float(out["rot_frac"])
+        ms_total, ff_total = int(out["ms_total"]), int(out["ff_total"])
+        if ms_total > len(ms_rows):
+            _warn_capacity("ms_rows", f"motion-stereo rows truncated ({ms_total} good > "
+                           f"{len(ms_rows)} budget) — raise _MS_ROWS")
+        if ff_total > len(ff_rows):
+            _warn_capacity("ff_rows", f"frame-to-frame match rows truncated ({ff_total} good > "
+                           f"{len(ff_rows)} budget) — raise _FF_ROWS")
+
+        frames = [{"xy": xy[ci], "size": size[ci], "mask": kp_mask[ci], "stacked": stacked,
+                   "cam": ci} for ci in range(NC)]
+        self.last_ransac = {"num_inliers": n_inl, "ok": ransac_ok}
+
+        # ---- observation insertion (RANSAC survivors only), resolved
+        # through the table's slots as of the dispatch ----
+        lid_of_dispatch = {s: lid for lid, s in ctx["slot_of"].items()}
+        n_matched = 0
+        for ci in range(NC):
+            fr = frames[ci]
+            for s in np.nonzero(keep[ci])[0]:
+                lid = lid_of_dispatch.get(int(s))
+                if lid is None or lid not in estimator.landmarks:
+                    continue
+                kp = int(idx[ci][s])
+                estimator.add_observation(lid, sid, ci, kp, fr["xy"][kp], fr["size"][kp])
+                table.stage_descriptor(lid, ci, kp)
+                self._desc_stage.append((lid, ci, kp))
+                n_matched += 1
+
+        # ---- frame-to-frame continuity: a current keypoint the map match
+        # missed, matched to a previous-frame keypoint that hosts a
+        # landmark, observes that landmark (Frontend.cpp:1399-1504) ----
+        n_ff = 0
+        prev_sid = ctx.get("ff_prev_sid")
+        if prev_sid is not None and prev_sid in estimator.states:
+            host_of = {(c2, k2): l2 for (l2, c2, k2) in estimator.obs_of_state(prev_sid)}
+            if host_of:
+                cur_obs = estimator.obs_of_state(sid)
+                cur_used = {(c2, k2) for (_l, c2, k2) in cur_obs}
+                cur_lids = {l2 for (l2, _c, _k) in cur_obs}
+                for r in ff_rows[ff_rows[:, 3] > 0.5]:
+                    ci, a, b = int(r[0]), int(r[1]), int(r[2])
+                    if b < 0 or ci >= NC:
+                        continue
+                    lid = host_of.get((ci, a))
+                    if lid is None or lid not in estimator.landmarks:
+                        continue
+                    if (ci, b) in cur_used or lid in cur_lids:
+                        continue
+                    fr = frames[ci]
+                    if not fr["mask"][b]:
+                        continue
+                    estimator.add_observation(lid, sid, ci, b, fr["xy"][b], fr["size"][b])
+                    table.stage_descriptor(lid, ci, b)
+                    self._desc_stage.append((lid, ci, b))
+                    cur_used.add((ci, b))
+                    cur_lids.add(lid)
+                    n_ff += 1
+        n_matched += n_ff
+
+        # ---- motion-stereo landmark initialisation, vetoed when a pure
+        # rotation explains nearly all keyframe<->current matches ----
+        n_ms = 0
+        if ctx["do_ms"] and rot_frac < cfg.rotation_only_veto:
+            used_of = {s2: {(c2, k2) for (_l, c2, k2) in estimator.obs_of_state(s2)}
+                       for s2 in set(top_ids) | {sid}}
+            for r in ms_rows[ms_rows[:, 7] > 0.5]:
+                k, ci = divmod(int(r[0]), NC)
+                if k >= len(top_ids):
+                    continue
+                kid = top_ids[k]
+                kfr = self._kf_store.get(kid)
+                if kfr is None:
+                    continue
+                a, b = int(r[1]), int(r[2])
+                if (ci, a) in used_of[kid] or (ci, b) in used_of[sid]:
+                    continue
+                used_of[kid].add((ci, a))
+                used_of[sid].add((ci, b))
+                fa = kfr[ci]
+                fr = frames[ci]
+                lid = estimator.add_landmark(r[3:7], initialised=True)
+                estimator.add_observation(lid, kid, ci, a, fa["xy"][a], fa["size"][a])
+                estimator.add_observation(lid, sid, ci, b, fr["xy"][b], fr["size"][b])
+                table.stage_descriptor(lid, ci, b)
+                self._desc_stage.append((lid, ci, b))
+                n_ms += 1
+        # no flush here: the staged updates fold into the next frame's
+        # program; remember which frame's signs they index
+        self._staged_signs_dev = stacked["signs"]
+        return frames, {
+            "num_matched": n_matched, "num_motion_stereo": n_ms, "num_ff": n_ff,
+            "ransac_inliers": n_inl, "ransac_ok": ransac_ok, "rotation_only_frac": rot_frac,
+            "extra": ctx.get("extra"),
+        }
+
+    def fetch_signs(self, frames):
+        """Blocking fetch of this frame's descriptors (keyframes only), in
+        the bit-packed form, unpacked to the ±1 convention on the host;
+        also resolves the staged ``lm_descriptors`` updates."""
+        packed = frames[0]["stacked"]["signs_packed"].cpu().numpy().view(np.uint32)
+        stage = self._desc_stage
+        self._desc_stage = []
+        return self._apply_fetched_signs(frames, packed, stage)
+
+    def _apply_fetched_signs(self, frames, packed, desc_stage):
+        """Unpack the bit-packed uint32 descriptors and resolve staged
+        ``lm_descriptors`` host copies."""
+        NC, N = packed.shape[0], packed.shape[1]
+        bits = ((packed[..., None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(NC, N, -1)
+        signs_np = np.where(bits > 0, 1.0, -1.0).astype(np.float32)
+        # masked-out keypoints have all-zero sign rows in the float form
+        for ci, fr in enumerate(frames):
+            signs_np[ci] *= np.asarray(fr["mask"], np.float32)[:, None]
+            fr["signs_np"] = signs_np[ci]
+        for (lid, ci, kp) in desc_stage:
+            if kp < signs_np.shape[1]:
+                self._remember_descriptor(lid, signs_np[ci, kp])
+        return signs_np
+
+    # ------------------------------------------------------------------
+    def _flush_staged(self):
+        """Apply descriptor updates still staged for the next frame's fold
+        (call before any direct read of the device table)."""
+        t = self.table
+        src = self._staged_signs_dev
+        if t._upd and src is not None:
+            t.flush(src)
+            self._staged_signs_dev = None
+
+    def _remember_descriptor(self, lid: int, signs: np.ndarray):
+        """Record a landmark's descriptor: the latest view in
+        ``lm_descriptors`` and up to 3 distinct variants (bit-packed) in
+        ``lm_desc_sets``; near-duplicates (< 16 of 512 bits apart) do not
+        displace an existing variant."""
+        signs = np.asarray(signs)
+        self.lm_descriptors[lid] = signs
+        packed = np.packbits(signs > 0)
+        sets = self.lm_desc_sets.get(lid)
+        if sets is None:
+            self.lm_desc_sets[lid] = [packed]
+            return
+        for p in sets:
+            if int(np.unpackbits(p ^ packed).sum()) < 16:
+                return
+        if len(sets) < 3:
+            sets.append(packed)
+        else:
+            # keep the oldest (first-seen view) + the two newest variants
+            sets[1] = sets[2]
+            sets[2] = packed
+
+    def _sync_table(self, estimator):
+        """Free table slots of landmarks that no longer exist."""
+        dead = [lid for lid in self.table.slot_of if lid not in estimator.landmarks]
+        for lid in dead:
+            self.table.release(lid)
+            self.lm_descriptors.pop(lid, None)
+            self.lm_desc_sets.pop(lid, None)
+
+    # ------------------------------------------------------------------
+    def _overlapping_pairs(self):
+        """Camera pairs with FoV overlap (NCameraSystem::computeOverlaps
+        role; all-pairs generalisation of matchStereo, Frontend.cpp:
+        1981-2150)."""
+        if self._overlap_pairs is None:
+            from okvis2_torch.cameras.ncamera import NCameraSystem
+
+            nc = len(self.cameras)
+            if nc == 2:
+                pairs = [(0, 1)]
+            else:
+                rig = NCameraSystem(list(self.cameras), list(self.extrinsics))
+                pairs = [(i, j) for i in range(nc) for j in range(i + 1, nc)
+                         if rig.has_overlap(i, j)]
+            self._overlap_pairs = pairs
+        return self._overlap_pairs
+
+    def match_stereo(self, estimator, frames, sid: int):
+        """Static-stereo initialisation of new landmarks across all
+        overlapping camera pairs (matchStereo, Frontend.cpp:1981-2150): one
+        device call for all pairs, then the host-side dedup that
+        reproduces the sequential pair order's keypoint consumption."""
+        pend = self._dispatch_static_stereo(estimator, frames, sid)
+        if pend is None:
+            return 0
+        fetched = tuple(x.cpu().numpy() for x in pend["out"])
+        return self._insert_static_stereo(estimator, frames, sid, pend, fetched)
+
+    def _dispatch_static_stereo(self, estimator, frames, sid: int):
+        """The all-pairs static-stereo program on the device; returns
+        {"out": (idx_b, hp_W, good, parallel) tensors, "pairs", "N"} or
+        None when the rig has no overlapping pairs."""
+        cfg = self.cfg
+        if len(self.cameras) < 2:
+            return None
+        pairs = tuple(self._overlapping_pairs())
+        if not pairs:
+            return None
+        rec = estimator.states[sid]
+        stacked = frames[0]["stacked"]
+        free = np.stack([np.asarray(f["mask"], bool) for f in frames])
+        N = free.shape[1]
+        for (_l, c, kp) in estimator.obs_of_state(sid):
+            if kp < N:
+                free[c, kp] = False
+        T_WA7s = np.stack([se3_np.compose7(rec.pose, self.T_SC_np[ci]) for ci, _ in pairs])
+        T_WB7s = np.stack([se3_np.compose7(rec.pose, self.T_SC_np[cj]) for _, cj in pairs])
+        gates = [cfg.stereo_epipolar_gate / float(self.cameras[ci].focal.reshape(-1)[0])
+                 for ci, _ in pairs]
+        out = _stereo_pairs(
+            self.cameras, T_WA7s, T_WB7s, gates, cfg.min_depth, cfg.max_depth,
+            free[[ci for ci, _ in pairs]], free[[cj for _, cj in pairs]],
+            stacked["xy"], stacked["signs"], pairs, cfg.matching_threshold, True)
+        return {"out": out, "pairs": pairs, "N": N}
+
+    def _insert_static_stereo(self, estimator, frames, sid: int, pend, fetched):
+        """Insert the fetched pair matches as new landmarks and
+        observations; a keypoint consumed by an earlier pair (or already
+        observed) cannot seed another landmark."""
+        stacked = frames[0]["stacked"]
+        idx_b, hp_W, good, parallel = fetched
+        pairs = pend["pairs"]
+        used = {(c, kp) for (_l, c, kp) in estimator.obs_of_state(sid)}
+        n_new = 0
+        for p, (ci, cj) in enumerate(pairs):
+            fa, fb = frames[ci], frames[cj]
+            for a in np.nonzero(good[p])[0]:
+                a = int(a)
+                b = int(idx_b[p][a])
+                if (ci, a) in used or (cj, b) in used:
+                    continue
+                used.add((ci, a))
+                used.add((cj, b))
+                lid = estimator.add_landmark(hp_W[p][a], initialised=not parallel[p][a])
+                estimator.add_observation(lid, sid, ci, a, fa["xy"][a], fa["size"][a])
+                estimator.add_observation(lid, sid, cj, b, fb["xy"][b], fb["size"][b])
+                if "signs_np" in fa:
+                    self._remember_descriptor(lid, fa["signs_np"][a])
+                self.table.stage_descriptor(lid, ci, a)
+                n_new += 1
+        self.table.flush(stacked["signs"])
+        return n_new
+
+    # ------------------------------------------------------------------
+    def remember_keyframe_frames(self, sid: int, frames):
+        """Store a keyframe's detection output (host xy/size/mask and the
+        device-resident stacked tensors) for motion stereo; the store
+        keeps up to max(2 K, 8) keyframes, evicting the oldest."""
+        store = self._kf_store
+        store[sid] = frames
+        cap = max(2 * self.cfg.motion_stereo_keyframes, 8)
+        for old in sorted(store)[:-cap]:
+            del store[old]
+
+    def _rank_keyframes_by_overlap(self, estimator, T_WS_pred7, sid: int, hp: np.ndarray,
+                                   lm_mask: np.ndarray, top_k: int):
+        """Rank stored keyframes by predicted view overlap with the current
+        frame: the count of map landmarks inside both cam0 frusta (proxy of
+        the reference's overlapFraction, ViSlamBackend.cpp:2341+). Returns
+        up to top_k keyframe ids, best first."""
+        cand = [s for s in self._kf_store if s != sid and s in estimator.states]
+        if not cand:
+            return []
+        pts = hp[:, :3][lm_mask]
+        if len(pts) < 8:
+            # too few map points to rank: the most recent first
+            return sorted(cand)[-top_k:][::-1]
+        cam0 = self.cameras[0]
+        fx = float(cam0.focal.reshape(-1)[0])
+        half_w = (cam0.width * 0.5) / fx * 1.2
+        half_h = (cam0.height * 0.5) / fx * 1.2
+
+        def visible(pose7):
+            T_WC = se3_np.compose7(pose7, self.T_SC_np[0])
+            R = se3_np.quat_to_mat(T_WC[3:7])
+            pc = (pts - T_WC[:3]) @ R  # world -> camera
+            z = pc[:, 2]
+            return (z > 0.2) & (np.abs(pc[:, 0]) < half_w * z) & (np.abs(pc[:, 1]) < half_h * z)
+
+        cur = visible(np.asarray(T_WS_pred7))
+        scored = sorted(((int((visible(estimator.states[s].pose) & cur).sum()), s)
+                         for s in cand), reverse=True)
+        top = [s for n, s in scored[:top_k] if n > 0]
+        if not top:
+            top = [max(cand)]
+        return top
+
+    # ------------------------------------------------------------------
+    def _disk_offsets(self, r: int) -> np.ndarray:
+        offs = self._disk_offs_cache.get(r)
+        if offs is None:
+            g = np.arange(-r, r + 1)
+            dx, dy = np.meshgrid(g, g)
+            m = dx * dx + dy * dy <= r * r
+            offs = np.stack([dx[m], dy[m]], axis=-1)  # [(dx,dy)]
+            self._disk_offs_cache[r] = offs
+        return offs
+
+    def _coverage_iou(self, ci: int, xy: np.ndarray, det_idx, match_idx):
+        """Painted-disk coverage on a 1/10-scale mask: disks of radius
+        0.09*min(rows,cols) at keypoint/10 positions; returns the
+        (intersection, union) pixel counts of the matched disks vs all
+        detection disks (doWeNeedANewKeyframe, Frontend.cpp:1072-1103)."""
+        cam = self.cameras[ci]
+        rows, cols = max(cam.height // 10, 1), max(cam.width // 10, 1)
+        offs = self._disk_offsets(max(int(min(rows, cols) * 0.09), 1))
+
+        def paint(idx):
+            mask = np.zeros((rows, cols), bool)
+            idx = np.asarray(list(idx), np.int64)
+            if len(idx) == 0:
+                return mask
+            c = (np.asarray(xy)[idx] * 0.1).astype(np.int64)  # [n,2] x,y
+            pix = c[:, None, :] + offs[None]  # [n,D,2]
+            x = np.clip(pix[..., 0], 0, cols - 1).ravel()
+            y = np.clip(pix[..., 1], 0, rows - 1).ravel()
+            mask[y, x] = True
+            return mask
+
+        det = paint(det_idx)
+        mat = paint(match_idx)
+        return int((mat & det).sum()), int((mat | det).sum())
+
+    def need_new_keyframe(self, estimator, frames, sid: int) -> bool:
+        """Keyframe heuristic (doWeNeedANewKeyframe, Frontend.cpp:
+        1057-1167): painted-disk coverage IoU of the matched keypoints vs
+        all detections, for the current frame and for every stored
+        keyframe (its keypoints hosting landmarks co-observed now), decided
+        on the min of the two; the matched/detected count ratio is a
+        second trigger."""
+        cfg = self.cfg
+        if self.last_keyframe_id is None:
+            return True
+        obs_sid = list(estimator.obs_of_state(sid))
+        cur_lids = {lid for (lid, _c, _k) in obs_sid}
+        best_ratio = 0.0
+        inter = union = 0
+        n_kp_total = 0
+        for ci, fr in enumerate(frames):
+            det_idx = np.nonzero(np.asarray(fr["mask"], bool))[0]
+            n_kp_total += len(det_idx)
+            match_idx = [kp for (_l, c, kp) in obs_sid if c == ci]
+            if len(det_idx):
+                best_ratio = max(best_ratio, len(match_idx) / len(det_idx))
+            i, u = self._coverage_iou(ci, fr["xy"], det_idx, match_idx)
+            inter += i
+            union += u
+        overlap = inter / union if union else 0.0
+        # ... and seen from the stored keyframes (Frontend.cpp:1106-1156)
+        overlap_others = 0.0
+        for s, kf_frames in self._kf_store.items():
+            if s == sid or s not in estimator.states:
+                continue
+            obs_k = list(estimator.obs_of_state(s))
+            i_k = u_k = 0
+            for ci, fr in enumerate(kf_frames):
+                det_idx = np.nonzero(np.asarray(fr["mask"], bool))[0]
+                match_idx = [kp for (lid, c, kp) in obs_k if c == ci and lid in cur_lids]
+                i, u = self._coverage_iou(ci, fr["xy"], det_idx, match_idx)
+                i_k += i
+                u_k += u
+            if u_k:
+                overlap_others = max(overlap_others, i_k / u_k)
+        overlap = min(overlap, overlap_others)
+        if n_kp_total < 7 * len(frames):
+            return False  # a respectable keyframe needs detections
+        return overlap < cfg.keyframe_overlap_threshold or best_ratio < cfg.keyframe_matching_ratio
+
+    def tracking_quality(self, estimator, frames, sid: int) -> float:
+        """Fraction of grid cells with matches (trackingQuality analogue,
+        ViSlamBackend.cpp:157-197)."""
+        g = self.cfg.keyframe_grid
+        total = 0
+        matched_cells = set()
+        obs_sid = estimator.obs_of_state(sid)
+        for ci, fr in enumerate(frames):
+            W, H = self.cameras[ci].width, self.cameras[ci].height
+            matched = {kp for (_l, c, kp) in obs_sid if c == ci}
+            for kp in matched:
+                x, y = fr["xy"][kp]
+                matched_cells.add((ci, int(x * g / W), int(y * g / H)))
+            total += g * g
+        return len(matched_cells) / max(total, 1)
+

@@ -71,6 +71,37 @@ def imu_segment(t0, t1, n, params: ImuParameters):
     )
 
 
+class CircleTrajectory:
+    """Closed circuit at constant height (``period`` s, ``radius`` m),
+    yawing gently to keep the star field in view; the same
+    ``true_state`` / ``imu_at`` API as this module's trajectory."""
+
+    def __init__(self, period: float = 10.0, radius: float = 1.5):
+        self.w = 2.0 * np.pi / period
+        self.radius = radius
+
+    def _pos(self, t):
+        a = self.w * t
+        return torch.stack([self.radius * torch.sin(a), self.radius * (1.0 - torch.cos(a)),
+                            0.05 * torch.sin(2.0 * a)])
+
+    def _theta(self, t):
+        return 0.15 * torch.sin(self.w * t)
+
+    def true_state(self, t, device=None):
+        t = torch.as_tensor(t, dtype=torch.float64, device=resolve_device(device))
+        u = torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device)
+        return Transformation(r=self._pos(t), q=so3.delta_q(u * self._theta(t))), \
+            jacfwd(self._pos)(t)
+
+    def imu_at(self, t: torch.Tensor, params: ImuParameters):
+        u = torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device)
+        w_S = u * grad(self._theta)(t)
+        a_W = jacfwd(jacfwd(self._pos))(t)
+        C_WS = so3.quat_to_matrix(so3.delta_q(u * self._theta(t)))
+        return w_S, C_WS.T @ (a_W - params.gravity_w)
+
+
 def stereo_rig(baseline=0.11, distortion_cls=None, device=None):
     dev = resolve_device(device)
     cam = PinholeCamera.create_test_object(distortion_cls, device=dev)

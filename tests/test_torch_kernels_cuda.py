@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the tracking program (whose detection runs the Harris kernel) on the
-card against the same program on the CPU.
+and the tracking program and the synchronous SLAM loop (whose detection
+runs the Harris kernel) on the card against the same on the CPU.
 
 A hand-written CUDA kernel has no CPU mode, so every test here is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it also
@@ -218,3 +218,192 @@ def test_frame_associate_card_matches_cpu(cuda):
         assert torch.equal(x.cpu(), y)
     assert int(rg[3]) == int(rc[3]) and bool(rg[4]) and bool(rc[4])
     assert (rg[5].cpu() - rc[5]).abs().max() < 1e-4
+
+
+def _slam_system(device):
+    """The synchronous SlamSystem on ``device``: float32 cameras of the
+    small radtan rig at 192x128, 128 keypoints, an 8-state window, RANSAC
+    hypotheses drawn per frame by a CPU generator seeded with the frame
+    counter. ``slam.last_frames`` keeps each frame's frontend records."""
+    from okvis2_torch.frontend.detection import DetectionConfig
+    from okvis2_torch.graph.estimator import EstimatorConfig
+    from okvis2_torch.imu.preintegration import ImuParameters
+    from okvis2_torch.pipeline import frontend_pipeline as fp
+    from okvis2_torch.pipeline.slam import SlamSystem
+    from okvis2_torch.pipeline.synthetic_run import small_rig
+
+    def sampler_for(counter):
+        def sampler(mask, cam_idx, n_hyp, nc):
+            gen = torch.Generator().manual_seed(counter)
+            return fp.sample_hypotheses(gen, mask.cpu(), cam_idx.cpu(), n_hyp,
+                                        nc).to(mask.device)
+        return sampler
+
+    cams, exts = small_rig(192, 128, dtype=torch.float32, device=device)
+    slam = SlamSystem(
+        cams, exts, ImuParameters.create(g=9.81, device=device),
+        EstimatorConfig(window_slots=8, landmark_slots=192, obs_slots=1024,
+                        imu_seg_capacity=64),
+        fp.FrontendConfig(detection=DetectionConfig(max_keypoints=128)), device=device,
+        ransac_sampler=sampler_for)
+    finish = slam.frontend.finish_frame
+
+    def finish_and_keep(*a, **kw):
+        frames, m = finish(*a, **kw)
+        slam.last_frames = frames
+        return frames, m
+
+    slam.frontend.finish_frame = finish_and_keep
+    return slam
+
+
+def _perturbed(problem, rel, gen):
+    """``problem`` with every float leaf scaled by 1 + ``rel`` * N(0, 1)."""
+    from okvis2_torch.solver.window_problem import WindowProblem
+
+    def pert(x):
+        if not x.is_floating_point():
+            return x
+        return x * (1 + rel * torch.randn(x.shape, generator=gen, dtype=x.dtype))
+
+    return WindowProblem(**{f: getattr(problem, f).map(pert) if f == "imu_pre"
+                            else pert(getattr(problem, f)) for f in WindowProblem._FIELDS})
+
+
+def _landmarks_by_obs(est):
+    """{sorted observation keys (state, cam, keypoint): landmark id}: the
+    same landmark in two runs, whatever id each gave it."""
+    return {tuple(sorted(tuple(int(x) for x in o) for o in lm.obs)): lid
+            for lid, lm in est.landmarks.items()}
+
+
+def _describe_split(card, host, keys):
+    """Where the runs' maps part: each landmark only one run has, with its
+    keypoints in both runs' current frame and their descriptor bits.
+    ``keys``: {"card": {observation keys: landmark id}, "CPU": {...}}."""
+    lines = []
+    for side, slam, other in (("card", card, host), ("CPU", host, card)):
+        for k in keys[side]:
+            lm = slam.estimator.landmarks[keys[side][k]]
+            parts = [f"{side}-only landmark {keys[side][k]} (hp {np.round(lm.hp_W, 4)}, "
+                     f"initialised {lm.initialised}) observed at {list(k)}"]
+            for (sid, c, kp) in k:
+                if sid != slam.tracking.id:
+                    continue
+                fa, fb = slam.last_frames[c], other.last_frames[c]
+                sa, sb = (torch.as_tensor(f["stacked"]["signs"][c][kp]).cpu() for f in (fa, fb))
+                parts.append(
+                    f"cam {c} kp {kp}: xy {fa['xy'][kp].tolist()} here, "
+                    f"{fb['xy'][kp].tolist()} in the other run (mask {bool(fb['mask'][kp])}), "
+                    f"{int((sa != sb).sum())} descriptor bits differ")
+            lines.append("; ".join(parts))
+    return "\n".join(lines)
+
+
+def test_slam_loop_card_matches_cpu(cuda, monkeypatch):
+    """Ten frames of the synchronous loop on the card and on the CPU in
+    lockstep, on the same uint8 frames, IMU and RANSAC draws; the drive
+    converts keyframes into pose-graph factors. Both runs are float32.
+
+    End to end: the same keyframe flags on every frame; frames 0-1, before
+    a landmark can part the maps, poses within 1e-4 m and equal landmark
+    counts. After that the runs part where a descriptor bit ties to
+    rounding and goes the other way on the card (the test prints the first
+    landmark that parts the maps, with the keypoints and bits behind it),
+    and a float32 window solve of these frames (10 LM iterations, not
+    converged) moves by millimetres in poses and centimetres in landmarks
+    when its inputs change by 1e-7 of their size, on the CPU alone. So every
+    window solve of the card run is held on identical inputs in float64:
+    its packed problem solved on the card and on the CPU gives poses within
+    1e-8 and landmark points within 1e-6 m, with the same LM iteration
+    count; a 1e-15 relative change of the inputs moves these float64 solves
+    by ~1e-11 on the CPU. The test prints both sensitivities beside the
+    card-CPU differences in float32 and float64."""
+    from okvis2_torch.graph import estimator as est_mod
+    from okvis2_torch.imu.preintegration import ImuParameters
+    from okvis2_torch.pipeline.dataset import SyntheticDataset
+    from okvis2_torch.pipeline.synthetic_run import small_rig
+    from okvis2_torch.solver.packed_solve import decode_solved
+
+    cams, exts = small_rig(192, 128, dtype=torch.float64, device="cpu")
+    ds = SyntheticDataset(cams, exts, ImuParameters.create(g=9.81, device="cpu"),
+                          n_stars=1500, duration=2.5, frame_rate=4.0, device="cpu")
+    frames, imu = [], []
+    for ev in ds.stream():
+        if ev[0] == "imu":
+            imu.append(ev[1:])
+        else:
+            frames.append((ev[1], np.stack([(np.clip(im, 0.0, 1.0) * 255.0 + 0.5)
+                                            .astype(np.uint8) for im in ev[2]])))
+    solves, solve = [], est_mod.solve_packed
+
+    def solve_and_keep(problem, cameras, imu_params, config):
+        out = solve(problem, cameras, imu_params, config)
+        if out.is_cuda:
+            solves.append((problem.to(device="cpu"), config, out.cpu()))
+        return out
+
+    monkeypatch.setattr(est_mod, "solve_packed", solve_and_keep)
+    card, host = _slam_system(cuda), _slam_system("cpu")
+    n0 = harris_cuda.harris_nms_cuda.launches
+    ii, split = 0, None
+    d_pos, d_lms = [], []
+    for f, (t, imgs) in enumerate(frames):
+        while ii < len(imu) and imu[ii][0] <= t + 1e-9:
+            for s in (card, host):
+                s.add_imu_measurement(*imu[ii])
+            ii += 1
+        for s in (card, host):
+            s.add_images(t, list(imgs))
+            s.process_frame()
+        assert card.tracking.is_keyframe == host.tracking.is_keyframe, f"frame {f}"
+        pc, ph = (s.estimator.states[s.tracking.id].pose for s in (card, host))
+        d_pos.append(float(np.abs(pc[:3] - ph[:3]).max()))
+        d_lms.append(len(card.estimator.landmarks) - len(host.estimator.landmarks))
+        kc, kh = _landmarks_by_obs(card.estimator), _landmarks_by_obs(host.estimator)
+        if split is None and kc.keys() != kh.keys():
+            split = f"frame {f}:\n" + _describe_split(
+                card, host, {"card": {k: v for k, v in kc.items() if k not in kh},
+                             "CPU": {k: v for k, v in kh.items() if k not in kc}})
+    print(f"card vs CPU, per frame: pose difference {d_pos} m, landmark count difference "
+          f"{d_lms}; first landmark that parts the maps: {split}")
+    assert harris_cuda.harris_nms_cuda.launches - n0 == len(frames) == 10
+    assert max(d_pos[:2]) < 1e-4 and d_lms[:2] == [0, 0], (d_pos, d_lms)
+
+    S, L = card.estimator.cfg.window_slots, card.estimator.cfg.landmark_slots
+    assert len(solves) == len(frames)
+    pts = lambda hp: hp[:, :3] / np.where(np.abs(hp[:, 3:]) > 1e-9, hp[:, 3:], 1.0)  # noqa: E731
+    f64, gen = torch.float64, torch.Generator().manual_seed(0)
+    h_cams = host.estimator.cameras
+    h_cams64 = tuple(c.to(dtype=f64) for c in h_cams)
+    h_imu = host.estimator.imu_params
+    h_imu64 = h_imu.to(dtype=f64)
+    # (poses, landmark points): card vs CPU in float32 and in float64, and
+    # the CPU solve's change when its inputs change by 1e-7 and 1e-15
+    worst = {k: [0.0, 0.0] for k in ("f32", "f64", "f32 sens", "f64 sens")}
+    for problem, config, out in solves:
+        p64 = problem.to(dtype=f64)
+        ref64 = solve(p64, h_cams64, h_imu64, config)
+        got64 = solve(p64.to(device=cuda), tuple(c.to(dtype=f64) for c in card.estimator.cameras),
+                      card.estimator.imu_params.to(dtype=f64), config)
+        ref32 = solve(problem, h_cams, h_imu, config)
+        pairs = {"f32": (out, ref32), "f64": (got64, ref64),
+                 "f32 sens": (solve(_perturbed(problem, 1e-7, gen), h_cams, h_imu, config), ref32),
+                 "f64 sens": (solve(_perturbed(p64, 1e-15, gen), h_cams64, h_imu64, config),
+                              ref64)}
+        for k, (a, b) in pairs.items():
+            (pa, _, la, _, sa), (pb, _, lb, _, sb) = (decode_solved(x, S, L, 2) for x in (a, b))
+            worst[k][0] = max(worst[k][0], float(np.abs(pa - pb).max()))
+            worst[k][1] = max(worst[k][1], float(np.abs(pts(la) - pts(lb)).max()))
+            if k == "f64":
+                assert sa["iterations"] == sb["iterations"]
+    print("window solves on identical inputs, card vs CPU, and the CPU's sensitivity to its "
+          "inputs (largest pose, landmark point difference): "
+          + ", ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in worst.items()))
+    assert worst["f64"][0] < 1e-8 and worst["f64"][1] < 1e-6, worst
+    est = card.estimator
+    assert len(est.landmarks) > 50
+    assert len(est.window) <= 8
+    # at 4 Hz keyframes come often: the marginalisation makes pose-graph
+    # factors on the card (2 in this drive on the CPU)
+    assert len(est.pose_graph_edges) >= 1

@@ -28,7 +28,10 @@ from okvis2_torch.frontend import descriptor as tdesc
 from okvis2_torch.frontend import detection as tdet
 from okvis2_torch.frontend import matching as tmatch
 from okvis2_torch.pipeline import dataset as tds
+from okvis2_torch.graph import estimator as test_
 from okvis2_torch.pipeline import frontend_pipeline as tfp
+from okvis2_torch.pipeline import slam as tslam
+from okvis2_torch.pipeline import synthetic_run as tsr
 from okvis2_torch.solver import gauss_newton as tgn
 from okvis2_torch.solver.window_problem import SolverConfig as TCfg
 from okvis2_torch.solver.window_problem import WindowProblem as TWP
@@ -124,7 +127,11 @@ def test_import_leaves_jax_out():
             "okvis2_torch.utils.synthetic, okvis2_torch.interop, okvis2_torch.ops.harris_cuda, "
             "okvis2_torch.frontend.p3p, okvis2_torch.frontend.triangulation, "
             "okvis2_torch.core.se3_np, okvis2_torch.pipeline.frontend_pipeline, "
-            "okvis2_torch.pipeline.dataset; "
+            "okvis2_torch.pipeline.dataset, okvis2_torch.graph.estimator, "
+            "okvis2_torch.graph.mst, okvis2_torch.factors.two_pose, okvis2_torch.utils.timing, "
+            "okvis2_torch.solver.packed_solve, okvis2_torch.cameras.ncamera, "
+            "okvis2_torch.pipeline.trajectory, okvis2_torch.pipeline.slam, "
+            "okvis2_torch.pipeline.synthetic_run; "
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True)
@@ -164,6 +171,9 @@ DEVICE_NONE_ENTRY_POINTS = {
     "SyntheticDataset": lambda: tds.SyntheticDataset((), (), None),
     "DeviceLandmarkTable": lambda: tfp.DeviceLandmarkTable(8, 3),
     "frame_associate": lambda: tfp.frame_associate(*_frame_associate_args()),
+    "Estimator": lambda: test_.Estimator(*_rig_args()),
+    "SlamSystem": lambda: tslam.SlamSystem(*_rig_args()),
+    "run_synthetic_vio": lambda: tsr.run_synthetic_vio(duration=0.5),
 }
 
 
@@ -175,6 +185,27 @@ def test_device_none_raises_without_cuda(name):
         pytest.skip("a CUDA card is present: device=None resolves to it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DEVICE_NONE_ENTRY_POINTS[name]()
+
+
+def _rig_args():
+    """(cameras, extrinsics, imu parameters) of a tiny CPU rig."""
+    cams, exts = tsr.small_rig(32, 24, device="cpu")
+    return cams, exts, interop.imu_params_from_numpy(
+        {"sigma_g_c": 1.0, "sigma_a_c": 1.0, "sigma_gw_c": 1.0, "sigma_aw_c": 1.0, "g": 9.81},
+        device="cpu")
+
+
+@pytest.mark.parametrize("option", ["pipelined", "do_loop_closures", "cnn_params",
+                                    "add_depth_image"])
+def test_unported_options_raise(option):
+    """The pipelined loop, loop closure, CNN suppression and depth-aided
+    initialisation are not ported: asking for them raises, naming the
+    ROADMAP item, instead of being ignored."""
+    kw = {"pipelined": {"pipelined": True}, "do_loop_closures": {"do_loop_closures": True},
+          "cnn_params": {"cnn_params": {}}, "add_depth_image": {}}[option]
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        s = tslam.SlamSystem(*_rig_args(), device="cpu", **kw)
+        s.add_depth_image(0.0, np.zeros((24, 32)))
 
 
 def _frame_associate_args():

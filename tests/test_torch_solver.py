@@ -420,3 +420,26 @@ def test_pose_prior_pulls_solution(ref):
                   pose_prior_mask=torch.tensor([True, False]))
     solved, _ = tgn.solve_window(p, ref["tcams"], ref["tip"], TCfg(max_iterations=5))
     torch.testing.assert_close(solved.pose[0], target, rtol=0, atol=1e-8)
+
+
+def test_float32_solve_with_radtan_camera():
+    """A float32 solve through radtan cameras (the bench's rig model).
+    Under ``vmap``, forward-mode AD of a 0-d float32 tensor combined with
+    a Python scalar gave float64 tangents in the distortion model, and the
+    float64 landmark blocks then stopped the solve at the Cholesky (a dtype
+    mismatch); ``distort`` now computes on [..., 1] slices, so the
+    Jacobians are float32 and the solve runs."""
+    from okvis2_torch.cameras.distortion import RadialTangentialDistortion
+
+    tp, _, timu, _ = tsyn.build_problem(num_states=3, n_landmarks_side=4, device="cpu")
+    cams, _ = tsyn.stereo_rig(distortion_cls=RadialTangentialDistortion, device="cpu")
+    f32 = torch.float32
+    cams = tuple(c.to(dtype=f32) for c in cams)
+    frozen = torch.zeros(tp.S, dtype=torch.bool)
+    frozen[0] = True
+    problem = tsyn.disturb_problem(tp.replace(pose_frozen=frozen)).to(dtype=f32)
+    _, _, jp, je, jl = tgn._reproj_val_jac(problem, cams)
+    assert jp.dtype == je.dtype == jl.dtype == f32
+    solved, stats = tgn.solve_window(problem, cams, timu.to(dtype=f32), TCfg(max_iterations=3))
+    assert solved.pose.dtype == f32 and bool(torch.isfinite(solved.pose).all())
+    assert stats["iterations"] == 3 and float(stats["final_cost"]) < float(stats["initial_cost"])
