@@ -46,6 +46,18 @@ hand-written kernel against its plain PyTorch version:
                stage split, LM iterations per solve, and for the first a
                profiled steady frame. Launch counts are zeroed just before
                each drive and read just after
+  9. slam pipelined  the bench's own loop, SlamSystem(pipelined=True): the
+               solve of each frame runs on a worker thread and stream and
+               appends, on the card, the match rows of every frame still in
+               flight; bookkeeping runs one or two frames behind
+               (PIPELINED_DRIVES): the bench's 60 frames with the loop's own
+               lag, and 30 of them with two frames kept in flight. Each
+               checks what phase 8 checks, and that the appended rows never
+               exceed the observation slots; the second that every solve
+               from the third frame on appended three sets. Each prints the
+               frames/s of process_frame (which does not wait for the
+               card), the stage split, the lag histogram; the first a
+               profiled frame with two frames in flight
 
 Every check raises on failure, so any failing phase exits non-zero. The
 line before the last is the kernels' JSON record; the last line is
@@ -114,6 +126,37 @@ SLAM_DRIVES = {
 # 1e-5 to 4e-2 or more (the same factors computed in float32)
 TWO_POSE_T_TOL, TWO_POSE_INFO_TIMES, TWO_POSE_INFO_FLOOR = 1e-12, 10.0, 1e-10
 SLAM_MIN_LANDMARKS = 50
+# phase 9: the bench's pipelined loop (bench.py:160, run_e2e :163-196) on
+# the system and frames of phase 8's first drive, with the JAX package's
+# pipelined loop on the same frames and schedule (tools/e2e_reference_jax.py,
+# CPU, float32) setting the ATE bar by phase 8's rule (1.5x the JAX ATE plus
+# 5 mm, and below 0.10 m where the JAX ATE is). How far behind the host's
+# bookkeeping runs changes the result: the JAX loop on these 60 frames
+# reaches ATE 5.737 mm with one frame in flight at every dispatch (its own
+# lag on the CPU, "60 20 default 5 1"), 0.347 m with two ("... 1 1"), and
+# 0.119 m on the first 30 frames with three ("30 20 default 5 1 2 8192").
+# - "slam pipelined": the bench's 60 frames, warm-up 12 (bench.py:189), the
+#   loop's own lag. On the card a solve takes longer than a frame's host
+#   work, so from the second frame on two frames are in flight at each
+#   dispatch: the schedule of the JAX run with one frame kept in flight
+#   (keyframes at frames 0, 1, 2, 47). The drive checks that it ran so.
+# - "slam pipelined deep lag": the first 30 of those frames with two frames
+#   kept in flight (_force_min_pending=2), so that every solve from the
+#   third frame on appends three sets of match rows on the card; with 8192
+#   observation slots in place of 4096, where the appended rows overflow
+#   in both packages (4251 rows in the JAX run; keyframes at frames 0-3).
+PIPELINED_DRIVES = {
+    "slam pipelined": dict(frames=60, rate=20.0, trajectory="default", num_keyframes=5,
+                           warmup=12, min_pending=0, in_flight=2, obs_slots=4096,
+                           jax_ate_m=0.34743515642534833, min_edges=0, profile=True),
+    "slam pipelined deep lag": dict(frames=30, rate=20.0, trajectory="default",
+                                    num_keyframes=5, warmup=6, min_pending=2, in_flight=3,
+                                    obs_slots=8192, jax_ate_m=0.11948972192121458, min_edges=0,
+                                    profile=False),
+}
+# the share of a pipelined drive's frames, from the third on, that must run
+# at the drive's schedule (frames in flight after the dispatch)
+MIN_SCHEDULE_SHARE = 0.9
 
 
 def log(msg):
@@ -621,18 +664,21 @@ def phase_tracking(card):
     return {"harris_nms": launches}
 
 
-def phase_slam(card, name, d):
-    """Phase 8, one drive (``d``: a SLAM_DRIVES entry); returns the
-    kernels' launch counts over its frames."""
+def slam_drive(name, d, pipelined):
+    """The bench's system (bench.py:136-160) and the frames of one drive
+    (``d``: a SLAM_DRIVES or PIPELINED_DRIVES entry), with the solves' LM
+    iterations and row counts and every two-pose factor's inputs recorded.
+    Returns a namespace: slam, est, est_cfg, fe_cfg, feed_frame() (IMU up
+    to the next frame, then the frame; returns its time and ground-truth
+    pose), solves [(iterations, rows)], factors, restore()."""
+    from types import SimpleNamespace
+
     from okvis2_torch.core.se3 import Transformation
     from okvis2_torch.frontend import DetectionConfig
     from okvis2_torch.graph import estimator as est_mod
-    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
     from okvis2_torch.pipeline.dataset import SyntheticDataset
     from okvis2_torch.pipeline.frontend_pipeline import FrontendConfig
     from okvis2_torch.pipeline.slam import SlamSystem
-    from okvis2_torch.pipeline.trajectory import ate_rmse
-    from okvis2_torch.utils.timing import Timing
 
     n_frames, rate, tag = d["frames"], d["rate"], f"[{name}]"
     cams, T_SC, imu = tracking_rig(DEVICE)
@@ -655,24 +701,25 @@ def phase_slam(card, name, d):
         f"{d['trajectory']} trajectory at {rate:g} Hz in {time.perf_counter() - t0:.2f} s")
     assert n_rendered == n_frames + extra, n_rendered
 
-    est_cfg = est_mod.EstimatorConfig(window_slots=12, landmark_slots=512, obs_slots=4096,
+    est_cfg = est_mod.EstimatorConfig(window_slots=12, landmark_slots=512,
+                                      obs_slots=d.get("obs_slots", 4096),
                                       imu_seg_capacity=64, enforce_realtime=True,
                                       realtime_time_limit=1.0 / 200.0,
                                       num_keyframes=d["num_keyframes"])
     fe_cfg = FrontendConfig(detection=DetectionConfig(max_keypoints=N_KP),
                             map_match_capacity=TRACK_CAP)
-    slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=False, device=DEVICE)
+    slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=pipelined, device=DEVICE)
     est = slam.estimator
-    iterations = []
+    solves = []
     apply_solved = est.apply_solved_flat
 
     def apply_and_count(*a, **kw):
         stats = apply_solved(*a, **kw)
-        iterations.append(int(stats["iterations"]))
+        solves.append((int(stats["iterations"]), int(stats["n_obs"])))
         return stats
 
     est.apply_solved_flat = apply_and_count
-    # each two-pose factor's inputs and output, for the check below
+    # each two-pose factor's inputs and output, for check_two_pose
     factors, two_pose = [], est_mod.compute_two_pose_factor
 
     def two_pose_and_keep(*a, **kw):
@@ -693,29 +740,21 @@ def phase_slam(card, name, d):
             return ev[1], ev[3]
         raise AssertionError(f"{name}: the dataset ran out of frames")
 
-    gt, frame_s, windows, kf = [], [], [], []
-    try:
-        torch.cuda.synchronize()
-        harris_nms_cuda.launches = 0
-        for i in range(n_frames):
-            if i == d["warmup"]:
-                Timing.reset()  # the stage split covers the steady frames
-            t_i, pose = feed_frame()
-            ta = time.perf_counter()
-            slam.process_frame()
-            torch.cuda.synchronize()
-            frame_s.append(time.perf_counter() - ta)
-            gt.append((t_i, pose))
-            windows.append(len(est.window))
-            kf.append(bool(slam.tracking.is_keyframe))
-        launches = harris_nms_cuda.launches
-    finally:
+    def restore():
         est_mod.compute_two_pose_factor = two_pose
-    stages = {k: Timing.get(k) for k in ("1 frontend (fused)", "0 apply previous solve",
-                                         "2.05 keyframe extras", "3 optimise dispatch",
-                                         "3.1 pack_np", "3.15 upload", "3.2 solve",
-                                         "5 marginalise")}
 
+    return SimpleNamespace(slam=slam, est=est, est_cfg=est_cfg, fe_cfg=fe_cfg,
+                           feed_frame=feed_frame, solves=solves, factors=factors,
+                           restore=restore, tag=tag)
+
+
+def check_drive(name, d, run, gt, windows, kf, launches):
+    """The checks shared by phases 8 and 9: ATE against the bar, the map,
+    the window bound, marginalisation, pose-graph edges and their factors,
+    one Harris launch per frame. Returns the ATE."""
+    from okvis2_torch.pipeline.trajectory import ate_rmse
+
+    est, n_frames, tag = run.est, d["frames"], run.tag
     traj = est.trajectory()
     ate = ate_rmse(traj, gt, align=True)
     poses = np.stack([p for _, p in traj])
@@ -725,45 +764,168 @@ def phase_slam(card, name, d):
     if jax_ate <= 0.10:
         bar = min(bar, 0.10)
     edges = [(e.id_i, e.id_j) for e in est.pose_graph_edges]
+    n_left = sum(1 for s in est.state_order if not est.states[s].in_window)
     log(f"{tag} {n_frames} frames: ATE {ate:.6f} m (bar {bar:.6f} m; the JAX package on the "
         f"same frames {jax_ate:.6f} m), keyframes {sum(kf)} at frames "
         f"{[i for i, k in enumerate(kf) if k]}, landmarks {len(est.landmarks)}, pose-graph "
-        f"edges {len(edges)} {edges}, window max {max(windows)} of {est_cfg.window_slots}, "
-        f"states marginalised {sum(1 for s in est.state_order if not est.states[s].in_window)}")
+        f"edges {len(edges)} {edges}, window max {max(windows)} of {run.est_cfg.window_slots}, "
+        f"states marginalised {n_left}")
     assert ate < bar, f"{name}: ATE {ate:.6f} m against a bar of {bar:.6f} m"
     assert len(est.landmarks) > SLAM_MIN_LANDMARKS, f"{name}: {len(est.landmarks)} landmarks"
-    assert max(windows) <= est_cfg.window_slots, f"{name}: window sizes {windows}"
-    n_left = sum(1 for s in est.state_order if not est.states[s].in_window)
+    assert max(windows) <= run.est_cfg.window_slots, f"{name}: window sizes {windows}"
     assert n_left >= 1, f"{name}: no state left the window (no marginalisation)"
     assert len(edges) >= d["min_edges"], f"{name}: {len(edges)} pose-graph edges"
-    assert len(factors) == len(edges), (len(factors), len(edges))
-    n_oct = fe_cfg.detection.octaves
+    assert len(run.factors) == len(edges), (len(run.factors), len(edges))
+    n_oct = run.fe_cfg.detection.octaves
     assert launches == n_frames * n_oct, (
         f"harris_nms launched {launches} times in {n_frames} frames x {n_oct} octave")
-    if factors:
-        check_two_pose(tag, factors)
+    if run.factors:
+        check_two_pose(tag, run.factors)
+    return ate
+
+
+def log_split(tag, names, n_steady):
+    """The named stages' ms per steady frame and call counts."""
+    from okvis2_torch.utils.timing import Timing
+
+    split = {}
+    for k in names:
+        s = Timing.get(k)
+        split[k] = {"ms_per_frame": round(s.total / n_steady * 1e3, 3) if s else 0.0,
+                    "calls": s.n if s else 0}
+    log(f"{tag} stage split over the steady frames " + json.dumps(split))
+
+
+def phase_slam(card, name, d):
+    """Phase 8, one drive (``d``: a SLAM_DRIVES entry); returns the
+    kernels' launch counts over its frames."""
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.utils.timing import Timing
+
+    n_frames, run = d["frames"], slam_drive(name, d, pipelined=False)
+    slam, est, tag = run.slam, run.est, run.tag
+    gt, frame_s, windows, kf = [], [], [], []
+    try:
+        torch.cuda.synchronize()
+        harris_nms_cuda.launches = 0
+        for i in range(n_frames):
+            if i == d["warmup"]:
+                Timing.reset()  # the stage split covers the steady frames
+            t_i, pose = run.feed_frame()
+            ta = time.perf_counter()
+            slam.process_frame()
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - ta)
+            gt.append((t_i, pose))
+            windows.append(len(est.window))
+            kf.append(bool(slam.tracking.is_keyframe))
+        launches = harris_nms_cuda.launches
+    finally:
+        run.restore()
+    check_drive(name, d, run, gt, windows, kf, launches)
 
     steady = frame_s[d["warmup"]:]
     n_steady = len(steady)
+    iterations = [it for it, _ in run.solves]
     log(f"{tag} process_frame {n_steady / sum(steady):.3f} frames/s over frames "
         f"{d['warmup'] + 1}-{n_frames} (median {statistics.median(steady) * 1e3:.3f} ms; "
         f"first frame {frame_s[0] * 1e3:.1f} ms), harris_nms launches {launches} "
-        f"({n_frames} frames x {n_oct} octave) ({card})")
-    split = {k: {"ms_per_frame": (s.total / n_steady * 1e3) if s else 0.0,
-                 "calls": s.n if s else 0} for k, s in stages.items()}
-    log(f"{tag} stage split over the steady frames " + json.dumps(
-        {k: {"ms_per_frame": round(v["ms_per_frame"], 3), "calls": v["calls"]}
-         for k, v in split.items()}))
+        f"({n_frames} frames x {run.fe_cfg.detection.octaves} octave) ({card})")
+    log_split(tag, ("1 frontend (fused)", "0 apply previous solve", "2.05 keyframe extras",
+                    "3 optimise dispatch", "3.1 pack_np", "3.15 upload", "3.2 solve",
+                    "5 marginalise"), n_steady)
     log(f"{tag} LM iterations per applied solve: first {iterations[:3]}, steady "
         f"{sorted(set(iterations[d['warmup']:]))}, mean {statistics.mean(iterations):.2f} over "
         f"{len(iterations)} solves")
 
     if d["profile"]:
         def steady_frame():
-            feed_frame()
+            run.feed_frame()
             slam.process_frame()
 
         profile_frame(steady_frame)
+    return {"harris_nms": launches}
+
+
+def phase_pipelined(card, name, d):
+    """Phase 9, one drive (``d``: a PIPELINED_DRIVES entry) of the
+    pipelined loop; returns the kernels' launch counts over its frames.
+    The loop is timed as its user sees it: ``process_frame`` returns
+    without waiting for the device (nothing here synchronises between
+    frames), and ``finish()`` drains the frames still in flight."""
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.solver.packed_solve import MAX_APPEND_SETS
+    from okvis2_torch.utils.timing import Timing
+
+    n_frames, run = d["frames"], slam_drive(name, d, pipelined=True)
+    slam, est, tag = run.slam, run.est, run.tag
+    slam._force_min_pending = d["min_pending"]
+    kf_of = {}
+    slam.set_optimised_graph_callback(
+        lambda t, sid, pose, tr: kf_of.__setitem__(sid, bool(tr.is_keyframe)))
+    gt, frame_s, windows, in_flight, n_sets = [], [], [], [], []
+    # the last frame is profiled (with 1-2 frames in flight) and left out of
+    # the timing
+    n_timed = n_frames - 1 if d["profile"] else n_frames
+    try:
+        torch.cuda.synchronize()
+        harris_nms_cuda.launches = 0
+        for i in range(n_frames):
+            if i == d["warmup"]:
+                Timing.reset()  # the stage split covers the steady frames
+            t_i, pose = run.feed_frame()
+            if i == n_timed:
+                profile_frame(slam.process_frame)
+            else:
+                ta = time.perf_counter()
+                slam.process_frame()
+                frame_s.append(time.perf_counter() - ta)
+            gt.append((t_i, pose))
+            windows.append(len(est.window))
+            in_flight.append(len(slam._pending_frames))
+            n_sets.append(slam._pending_frames[-1]["n_sets"])
+        ta = time.perf_counter()
+        slam.finish()
+        drain_s = time.perf_counter() - ta
+        torch.cuda.synchronize()
+        launches = harris_nms_cuda.launches
+    finally:
+        run.restore()
+    kf = [kf_of[s] for s in est.state_order]
+    check_drive(name, d, run, gt, windows, kf, launches)
+    rows = [r for _, r in run.solves]
+    assert len(run.solves) == n_frames, (len(run.solves), n_frames)
+    assert max(rows) <= run.est_cfg.obs_slots, f"{name}: device-appended rows {max(rows)}"
+    # the schedule the JAX reference ran at
+    share = float(np.mean([n == d["in_flight"] for n in in_flight[2:]]))
+    assert share >= MIN_SCHEDULE_SHARE, (
+        f"{name}: {share:.3f} of the frames ran with {d['in_flight']} in flight: {in_flight}")
+    if d["min_pending"]:
+        # from the third frame on, two frames are in flight at every
+        # dispatch: every solve appends its own and their match rows
+        assert all(n == MAX_APPEND_SETS for n in n_sets[d["min_pending"]:]), n_sets
+    lag = {str(k): in_flight.count(k) for k in sorted(set(in_flight))}
+    sets = {str(k): n_sets.count(k) for k in sorted(set(n_sets))}
+
+    steady = frame_s[d["warmup"]:]
+    n_steady = len(steady)
+    iterations = [it for it, _ in run.solves]
+    log(f"{tag} process_frame {n_steady / sum(steady):.3f} frames/s over frames "
+        f"{d['warmup'] + 1}-{n_timed} (median {statistics.median(steady) * 1e3:.3f} ms; "
+        f"first frame {frame_s[0] * 1e3:.1f} ms), finish() drained the last "
+        f"{in_flight[-1]} frames in {drain_s * 1e3:.1f} ms; harris_nms launches {launches} "
+        f"({card})")
+    log(f"{tag} frames in flight after each dispatch (lag histogram) {json.dumps(lag)}; sets "
+        f"appended per solve {json.dumps(sets)}; device rows per solve: max {max(rows)} of "
+        f"{run.est_cfg.obs_slots}")
+    log_split(tag, ("0 consume finished frames", "0.1 lagged [solve|diag] fetch",
+                    "0.2 finish bookkeeping", "0.3 epilogue", "0.5 imu + predict", "1 prep",
+                    "3.1 pack_np", "2 upload + dispatches", "3.15 upload",
+                    "2.05 keyframe extras dispatch", "2.05 keyframe extras finish",
+                    "5 marginalise", "3.2 fused solve (worker)"), n_steady)
+    log(f"{tag} LM iterations per applied solve: first {iterations[:3]}, steady "
+        f"{sorted(set(iterations[d['warmup']:]))}, mean {statistics.mean(iterations):.2f} over "
+        f"{len(iterations)} solves")
     return {"harris_nms": launches}
 
 
@@ -852,6 +1014,8 @@ def main():
     launches = phase_hotpath(imgs, det_cfg, window, card)
     launches_tracking = phase_tracking(card)
     launches_slam = {name: phase_slam(card, name, d) for name, d in SLAM_DRIVES.items()}
+    launches_slam.update({name: phase_pipelined(card, name, d)
+                          for name, d in PIPELINED_DRIVES.items()})
     for k in kernels:
         by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
         by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})

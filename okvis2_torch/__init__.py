@@ -14,6 +14,9 @@ explicitly with ``device="cpu"``.
 
 from __future__ import annotations
 
+import functools
+import threading
+
 import torch
 
 __version__ = "0.1.0"
@@ -38,3 +41,23 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+# torch.func's forward mode (jacfwd, jvp) counts its nesting in a module
+# global and opens one process-wide dual level for the outermost call, so
+# two threads must not run it at the same time: the pipelined loop's solve
+# worker linearises while the host thread may compute a two-pose factor or
+# a synthetic trajectory's derivatives. Every function of the port that
+# runs forward mode holds this lock (re-entrant: nested jacfwd).
+FORWARD_AD_LOCK = threading.RLock()
+
+
+def forward_ad_locked(fn):
+    """``fn`` run under ``FORWARD_AD_LOCK``."""
+
+    @functools.wraps(fn)
+    def locked(*args, **kwargs):
+        with FORWARD_AD_LOCK:
+            return fn(*args, **kwargs)
+
+    return locked

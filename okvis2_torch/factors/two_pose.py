@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch.func import jacfwd, vmap
 
+from okvis2_torch import forward_ad_locked
 from okvis2_torch.core import so3
 from okvis2_torch.core.se3 import Transformation
 from okvis2_torch.factors.reprojection import cauchy_weight
@@ -39,6 +40,7 @@ def _oplus_pose(pose7, d):
     return torch.cat([r, q], dim=-1)
 
 
+@forward_ad_locked
 def compute_two_pose_factor(
     pose_i7: torch.Tensor,  # [7] reference keyframe pose T_WSi
     pose_j7: torch.Tensor,  # [7] marginalised keyframe pose T_WSj

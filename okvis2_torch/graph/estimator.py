@@ -28,8 +28,12 @@ are float64, as the JAX package under x64). The port's LM loop reads a
 flag back every iteration, so ``optimise_async`` has finished the solve
 when it returns; its result is still applied only at
 ``apply_pending_solve``, at the point in the frame where the JAX loop
-applies it. Left out here: the pipelined loop's fused solve
-(``prepare_fused_solve``, ``dispatch_fused_solve_carrier``) and loop
+applies it. The pipelined loop's solve is split in three:
+``prepare_fused_solve`` packs the window and the slot maps of the frames
+in flight on the host, ``upload_fused_solve`` copies them to the device,
+and ``dispatch_fused_solve`` hands the fused append + solve to the solve
+worker; ``apply_solved_flat`` applies its result when the loop consumes
+the frame. Left out here: loop
 closure's ``reactivate_loop_states``.
 """
 
@@ -55,9 +59,12 @@ from okvis2_torch.imu.preintegration import (
     propagate_state_np,
 )
 from okvis2_torch.solver.packed_solve import (
+    MAX_APPEND_SETS,
+    SolveWorker,
     decode_solved,
     problem_to_device,
     solve_packed,
+    solve_packed_fused,
 )
 from okvis2_torch.solver.window_problem import SolverConfig, WindowProblem
 from okvis2_torch.utils.timing import SwitchableTimer
@@ -338,6 +345,8 @@ class Estimator:
         self._np_template_cache: Optional[WindowProblem] = None
         self._pending_solve = None
         self._last_solve_wall = 0.0
+        self._solve_t0 = 0.0
+        self._solve_worker: Optional[SolveWorker] = None  # the pipelined loop's, on first use
         # realtime LM termination: relative cost decreases below 1e-6 and
         # accepted steps below 10 um end the solve (warm-started windows
         # converge in ~3 iterations)
@@ -690,6 +699,7 @@ class Estimator:
         lid_to_slot = np.full(self._next_lm_id + 1, -1, np.int32)
         if lm_ids:
             lid_to_slot[np.asarray(lm_ids, np.int64)] = np.arange(len(lm_ids), dtype=np.int32)
+        self._lid_to_slot = lid_to_slot  # reused by the pipelined solve's slot maps
         ar = self._obs_arena
         n = ar.n
         st = sid_to_slot[ar.sid[:n]]
@@ -712,6 +722,8 @@ class Estimator:
             o_uv[:k] = uvw[:, :2]
             o_w[:k] = uvw[:, 2] * sc_slot[lm_rows]
             o_mask[:k] = True
+        # the pipelined solve's device-side append starts after these rows
+        self._n_obs_packed = k
         _t_obs.__exit__(None, None, None)
 
         # IMU links between consecutive window slots, in a persistent
@@ -870,6 +882,94 @@ class Estimator:
             out = solve_packed(problem, self.cameras, self.imu_params, cfg)
         self._pending_solve = (out, dict(self._slot_of), list(self._lm_ids))
 
+    def prepare_fused_solve(self, sid: int, table, sets, iterations: Optional[int] = None):
+        """Host half of the pipelined loop's solve: the iteration budget, the
+        window packed from the host's (lagged) records, and the side inputs
+        of the device-side append. ``sets`` lists the frames whose match
+        rows the device must append, oldest first and ending with the
+        current frame (``sid``): every frame whose solve output the host
+        has not consumed yet, as {"sid": state id, "slot_lid": the landmark
+        table's slot -> landmark id array as of that frame's prep}.
+
+        Returns (problem_np, config, aux): aux holds numpy "maps" [K,cap]
+        (table slot -> this pack's landmark slot; -1 rows for padding sets
+        and for frames whose state has left the window), "cur_slots" [K],
+        "n_obs_base" (the rows packed here), "w_scale" [cap]
+        (sqrt(info_scale) of suppressed landmarks by current table slot),
+        and "n_sets", the sets left enabled; K = MAX_APPEND_SETS."""
+        cfg = self._solver_cfg
+        if iterations is None and self.cfg.enforce_realtime:
+            # realtime budget: _last_solve_wall spans dispatch to apply,
+            # about one frame, so it acts on the end-to-end frame time
+            if self._last_solve_wall > self.cfg.realtime_time_limit:
+                iterations = self.cfg.realtime_min_iterations
+        if iterations is not None and iterations != cfg.max_iterations:
+            cfg = dataclasses.replace(cfg, max_iterations=iterations)
+
+        K = MAX_APPEND_SETS
+        assert len(sets) <= K, (len(sets), K)
+        cap = table.capacity
+        with SwitchableTimer("3.1 pack_np"):
+            prob_np = self.pack_np()
+        with SwitchableTimer("3.16 pack: aux maps"):
+            maps = np.full((K, cap), -1, np.int64)
+            cur_slots = np.zeros(K, np.int64)
+            w_scale = np.ones(cap)
+            # CNN-suppressed landmarks are the only info_scale writers
+            for lid, sc in self._lm_suppressed.items():
+                slot = table.slot_of.get(lid)
+                if slot is not None:
+                    w_scale[slot] = np.sqrt(sc)
+            lid_to_slot = self._lid_to_slot
+            n_sets = 0
+            for k, st in enumerate(sets):
+                if st["sid"] not in self._slot_of:
+                    # the frame's state left the window before its
+                    # bookkeeping ran: its matches constrain nothing
+                    continue
+                sl = st["slot_lid"]
+                ok = (sl >= 0) & (sl < len(lid_to_slot))
+                maps[k] = np.where(ok, lid_to_slot[np.where(ok, sl, 0)], -1)
+                cur_slots[k] = self._slot_of[st["sid"]]
+                n_sets += 1
+        aux = {"maps": maps, "cur_slots": cur_slots, "n_obs_base": self._n_obs_packed,
+               "w_scale": w_scale, "n_sets": n_sets}
+        return prob_np, cfg, aux
+
+    def upload_fused_solve(self, prob_np: WindowProblem, aux: dict):
+        """Copy ``prepare_fused_solve``'s pack and side inputs to the device:
+        (problem, aux tensors as ``solve_packed_fused`` takes them)."""
+        dev = self.device
+        with SwitchableTimer("3.15 upload"):
+            problem = problem_to_device(prob_np, dev, self.dtype)
+            aux_dev = {
+                "maps": torch.from_numpy(aux["maps"]).to(dev),
+                "cur_slots": torch.from_numpy(aux["cur_slots"]).to(dev),
+                "n_obs_base": torch.tensor(aux["n_obs_base"], dtype=torch.long, device=dev),
+                "w_scale": torch.from_numpy(aux["w_scale"]).to(device=dev, dtype=self.dtype),
+            }
+        return problem, aux_dev
+
+    def dispatch_fused_solve(self, problem: WindowProblem, aux_dev: dict, match_sets, diag,
+                             config: SolverConfig):
+        """Submit the fused append + solve (``solve_packed_fused``) on the
+        uploaded pack to the solve worker, without waiting. ``match_sets``
+        are the frames' device-resident match tensors ({"idx", "keep",
+        "xy", "size"}) in the order of ``prepare_fused_solve``'s ``sets``,
+        padded to MAX_APPEND_SETS with any of them (their maps are -1);
+        ``diag`` is the current frame program's flat diagnostics. Returns
+        the job: {"future": resolves to the numpy [solve output | diag] or
+        raises the solve's exception, "inputs": the tensors the job reads}.
+        Hold the job until its result has been read."""
+        assert len(match_sets) == MAX_APPEND_SETS
+        if self._solve_worker is None:
+            self._solve_worker = SolveWorker(self.device)
+        self._solve_t0 = time.perf_counter()
+        sets = tuple((m["idx"], m["keep"], m["xy"], m["size"]) for m in match_sets)
+        inputs = (problem, aux_dev, sets, diag, self.cameras, self.imu_params, config)
+        return {"future": self._solve_worker.submit(solve_packed_fused, *inputs),
+                "inputs": inputs}
+
     def solve_out_size(self) -> int:
         """Length of solve_packed's flat output for this configuration."""
         c = self.cfg
@@ -882,13 +982,30 @@ class Estimator:
         self._pending_solve = None
         return pending
 
-    def apply_solved_flat(self, out, slot_of, lm_ids) -> dict:
+    def apply_solved_flat(self, out, slot_of, lm_ids, T_corr7=None, solve_t0=None) -> dict:
         """Integrate a solve output (numpy or device tensor) into the host
-        records."""
+        records. ``T_corr7`` composes a world-frame rigid correction onto
+        every solved pose, velocity and landmark first: the pipelined loop
+        passes the net correction applied after this solve was dispatched,
+        so that the solve does not undo it (``SlamSystem.
+        _note_pose_correction``). ``solve_t0``: this solve's dispatch time
+        (the pipelined loop keeps one per frame in flight; default the
+        last dispatch's)."""
         pose, sb, lms, ext, stats = decode_solved(
             out, self.cfg.window_slots, self.cfg.landmark_slots, len(self.cameras))
-        # solve-to-apply wall time: the realtime budget's input
-        self._last_solve_wall = time.perf_counter() - self._solve_t0
+        # dispatch-to-apply wall time of THIS solve: the realtime budget's
+        # input
+        self._last_solve_wall = time.perf_counter() - (
+            solve_t0 if solve_t0 is not None else self._solve_t0)
+        if T_corr7 is not None:
+            pose = np.array(pose, np.float64)
+            sb = np.array(sb, np.float64)
+            lms = np.array(lms, np.float64)
+            R = se3_np.quat_to_mat(T_corr7[3:7])
+            pose[:, :3] = pose[:, :3] @ R.T + T_corr7[:3]
+            pose[:, 3:7] = np.stack([se3_np.quat_mul(T_corr7[3:7], q) for q in pose[:, 3:7]])
+            sb[:, :3] = sb[:, :3] @ R.T  # the world velocity rotates
+            lms[:, :3] = lms[:, :3] @ R.T + T_corr7[None, :3] * lms[:, 3:4]
         for sid, i in slot_of.items():
             rec = self.states.get(sid)
             if rec is not None and not rec.frozen:
@@ -900,6 +1017,12 @@ class Estimator:
                 lm.hp_W = np.asarray(lms[i], np.float64)
         if self.cfg.online_extrinsics:
             self.T_SC = [np.asarray(ext[i], np.float64) for i in range(len(self.T_SC))]
+        if stats["n_obs"] > self.cfg.obs_slots:
+            _warn_capacity(
+                "obs_append",
+                f"device-appended match rows overflowed obs capacity ({stats['n_obs']:.0f} > "
+                f"{self.cfg.obs_slots}): excess matches did not constrain this solve — raise "
+                "obs_slots")
         self.update_landmark_quality()
         return stats
 

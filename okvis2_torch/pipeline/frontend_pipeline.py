@@ -21,6 +21,11 @@ that replaces ``p3p.sample_hypotheses``.
 ``DeviceLandmarkTable`` keeps its host bookkeeping (slots, LRU eviction,
 staged updates) in numpy as the JAX package does; the descriptor table
 itself (``signs``/``valid``) lives on the device as torch tensors.
+
+The host reads the program's outputs as one flat tensor, ``frame_diag``
+(the JAX program's ``diag`` layout, in the program's dtype): in the
+synchronous loop it is copied back at once, in the pipelined loop it rides
+back with the frame's solve output.
 """
 
 from __future__ import annotations
@@ -460,6 +465,66 @@ def frame_associate(cameras, T_SC7, images, T_WS7, landmarks, tab_signs, tab_val
     }
 
 
+def frame_diag(out, extra=None) -> torch.Tensor:
+    """``frame_associate``'s outputs that the host reads, as ONE flat tensor
+    in the program's dtype (indices and flags are exact there): xy | size |
+    mask | idx | keep | ms_rows | ff_rows | n_inl, ransac_ok, rot_frac,
+    ms_total, ff_total | ``extra`` (appended as it is, e.g. the previous
+    frame's solve output riding the same readback). Decode with
+    ``Frontend.finish_frame``."""
+    dtype = out["xy"].dtype
+    parts = [out[k].to(dtype).reshape(-1)
+             for k in ("xy", "size", "mask", "idx", "keep", "ms_rows", "ff_rows")]
+    parts.append(torch.stack([out[k].to(dtype) for k in
+                              ("n_inl", "ransac_ok", "rot_frac", "ms_total", "ff_total")]))
+    if extra is not None:
+        parts.append(torch.as_tensor(extra, device=out["xy"].device).to(dtype).reshape(-1))
+    return torch.cat(parts)
+
+
+def _stereo_flat(out) -> torch.Tensor:
+    """``_stereo_pairs``'s outputs as one flat tensor in hp_W's dtype:
+    idx_b (keypoint indices, exact) | hp_W | good | parallel."""
+    idx_b, hp_W, good, parallel = out
+    f = hp_W.dtype
+    return torch.cat([idx_b.to(f).reshape(-1), hp_W.reshape(-1), good.to(f).reshape(-1),
+                      parallel.to(f).reshape(-1)])
+
+
+def _decode_stereo_flat(flat: np.ndarray, P: int, N: int):
+    """Host decode of ``_stereo_flat``: (idx_b, hp_W, good, parallel)."""
+    o = P * N
+    idx_b = np.round(flat[:o]).astype(np.int32).reshape(P, N)
+    hp_W = flat[o:o + P * N * 4].reshape(P, N, 4)
+    o += P * N * 4
+    good = flat[o:o + P * N].reshape(P, N) > 0.5
+    parallel = flat[o + P * N:o + 2 * P * N].reshape(P, N) > 0.5
+    return idx_b, hp_W, good, parallel
+
+
+def _to_host_async(tensors):
+    """Start copies of ``tensors`` to the host on the current stream,
+    without waiting: on the card into pinned memory, with an event
+    recorded after them; on the CPU the tensors themselves. Returns (host
+    tensors, event or None); wait with ``_host_arrays``."""
+    if tensors[0].device.type != "cuda":
+        return list(tensors), None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_arrays(fetch):
+    """The numpy arrays of a ``_to_host_async`` fetch, once it has landed."""
+    host, done = fetch
+    if done is not None:
+        done.synchronize()
+    return [h.numpy() for h in host]
+
+
 class DeviceLandmarkTable:
     """Host bookkeeping for the device-resident landmark descriptor map:
     ``capacity`` slots of ``n_desc`` descriptors each, LRU-evicted when
@@ -581,7 +646,16 @@ class Frontend:
     overlap-ranked keyframes, the previous frame's keypoints, the staged
     descriptor updates), ``frame_associate`` runs on the device, and
     ``finish_frame`` inserts observations and landmarks. Keyframes add
-    static stereo, the descriptor fetch and the keyframe store.
+    static stereo, the descriptor fetch and the keyframe store
+    (``dispatch_keyframe_extras`` / ``finish_keyframe_extras``).
+
+    The synchronous loop runs the three steps in one call
+    (``associate_frame``) and a keyframe's extras at once. The pipelined
+    loop runs ``prepare_frame`` and ``dispatch_prepared`` for a frame
+    before the previous frames are finished, and ``finish_frame`` on the
+    host copy of the frame's diagnostics that came back with its solve; a
+    keyframe's extras start at its finish and are consumed at the next
+    one.
 
     The program and its per-frame inputs run at the cameras' precision:
     float32 on the card, as the JAX package's frame program and its
@@ -618,6 +692,8 @@ class Frontend:
         self._staged_signs_dev = None  # the signs the staged updates index
         self._overlap_pairs = None
         self._disk_offs_cache: Dict[int, np.ndarray] = {}
+        # host copies of the focal lengths (no device read per frame)
+        self._fx = [float(c.focal.reshape(-1)[0]) for c in self.cameras]
 
     # ------------------------------------------------------------------
     def associate_frame(self, estimator, images, sid: int, T_WS_pred7: np.ndarray,
@@ -631,15 +707,8 @@ class Frontend:
         one readback; it comes back as ``info["extra"]``. Returns (frames,
         info)."""
         prep = self.prepare_frame(estimator, images, sid, T_WS_pred7)
-        out = frame_associate(
-            self.cameras, np.stack(self.T_SC_np), prep["imgs_u8"], T_WS_pred7,
-            prep["landmarks"], self.table.signs, self.table.valid, self.cfg,
-            staged=prep["staged"], keyframes=prep["keyframes"], prev=prep["prev"],
-            generator=self._gen, sampler=prep["sampler"], device=self.device)
-        ctx = self._adopt_dispatch(prep, out)
-        if extra_flat is not None:
-            ctx["extra"] = torch.as_tensor(extra_flat).to(out["xy"].dtype).cpu().numpy()
-        return self.finish_frame(estimator, ctx, out)
+        ctx = self.dispatch_prepared(prep, extra_flat)
+        return self.finish_frame(estimator, ctx, ctx["diag"].cpu().numpy())
 
     def prepare_frame(self, estimator, images, sid: int, T_WS_pred7: np.ndarray):
         """``frame_associate``'s inputs from the host records: the images
@@ -722,15 +791,36 @@ class Frontend:
                     "T_WS7": estimator.states[ffp["sid"]].pose}
         sampler = None if self.ransac_sampler is None else self.ransac_sampler(self._frame_counter)
         return {
-            "sid": sid, "imgs_u8": imgs,
+            "sid": sid, "imgs_u8": imgs, "T_WS7": np.array(T_WS_pred7),
             "landmarks": {"hp": hp, "mask": lm_mask, "init": lm_init},
             "keyframes": keyframes, "top_ids": top_ids, "do_ms": bool(top_ids),
             "staged": {"signs": src, "upd": upd}, "prev": prev,
             "ff_prev_sid": ffp["sid"] if do_ff else None, "sampler": sampler,
             "NC": NC, "N": N, "cap": cap,
-            # the match rows reference table slots as of this prep
-            "slot_of": dict(table.slot_of),
+            # the match rows reference table slots as of this prep; later
+            # bookkeeping may release and reallocate slots, so consumers
+            # map through these snapshots
+            "slot_of": dict(table.slot_of), "slot_lid": table.slot_lid.copy(),
         }
+
+    def dispatch_prepared(self, prep, extra_flat=None):
+        """Run the tracking program on ``prepare_frame``'s inputs, adopt its
+        descriptor table, and return the frame's ctx without reading
+        anything back: the device-resident outputs ("stacked": keypoints
+        and descriptors; "match": idx, keep, xy, size for the pipelined
+        solve's device-side append; "diag": ``frame_diag``, with
+        ``extra_flat`` appended) and the host context ``finish_frame``
+        decodes them with."""
+        out = frame_associate(
+            self.cameras, np.stack(self.T_SC_np), prep["imgs_u8"], prep["T_WS7"],
+            prep["landmarks"], self.table.signs, self.table.valid, self.cfg,
+            staged=prep["staged"], keyframes=prep["keyframes"], prev=prep["prev"],
+            generator=self._gen, sampler=prep["sampler"], device=self.device)
+        ctx = self._adopt_dispatch(prep, out)
+        ctx["match"] = {k: out[k] for k in ("idx", "keep", "xy", "size")}
+        ctx["diag"] = frame_diag(out, extra_flat)
+        ctx["ms_n"], ctx["ff_n"] = out["ms_rows"].shape[0], out["ff_rows"].shape[0]
+        return ctx
 
     def _adopt_dispatch(self, prep, out):
         """Adopt the program's folded descriptor table; this dispatch's
@@ -748,31 +838,48 @@ class Frontend:
         return {"sid": prep["sid"], "stacked": stacked, "do_ms": prep["do_ms"],
                 "top_ids": prep["top_ids"], "ff_prev_sid": prep["ff_prev_sid"],
                 "NC": prep["NC"], "N": prep["N"], "cap": prep["cap"],
-                "slot_of": prep["slot_of"]}
+                "slot_of": prep["slot_of"], "slot_lid": prep["slot_lid"]}
 
-    def finish_frame(self, estimator, ctx, out):
-        """Read the program's outputs back and do the host bookkeeping:
-        observations of the RANSAC survivors, frame-to-frame continuity,
-        motion-stereo landmarks, descriptor staging (Frontend.cpp:
-        558-1015). Returns (frames, info)."""
+    def finish_frame(self, estimator, ctx, diag: np.ndarray):
+        """Decode the host copy of the frame's ``frame_diag`` and do the host
+        bookkeeping: observations of the RANSAC survivors, frame-to-frame
+        continuity, motion-stereo landmarks, descriptor staging
+        (Frontend.cpp:558-1015). ``diag`` was read back at once
+        (``associate_frame``) or came back with the frame's solve, frames
+        later (the pipelined loop). Returns (frames, info)."""
         cfg = self.cfg
         table = self.table
         # leftovers the last fold could not take index an older frame's
         # signs: flush them before this frame's staging starts
         if table._upd:
             self._flush_staged()
+        # per-finish staging: several frames can finish back to back; the
+        # stage list only ever holds this frame's entries
         self._desc_stage = []
         sid = ctx["sid"]
         stacked = ctx["stacked"]
         top_ids = ctx["top_ids"]
-        NC = ctx["NC"]
+        NC, N, cap = ctx["NC"], ctx["N"], ctx["cap"]
 
-        xy, size, kp_mask, idx, keep, ms_rows, ff_rows = (
-            out[k].cpu().numpy() for k in ("xy", "size", "mask", "idx", "keep", "ms_rows",
-                                           "ff_rows"))
-        n_inl, ransac_ok = int(out["n_inl"]), bool(out["ransac_ok"])
-        rot_frac = float(out["rot_frac"])
-        ms_total, ff_total = int(out["ms_total"]), int(out["ff_total"])
+        off = 0
+
+        def take(n, shape):
+            nonlocal off
+            v = diag[off:off + n]
+            off += n
+            return v.reshape(shape)
+
+        xy = take(NC * N * 2, (NC, N, 2))
+        size = take(NC * N, (NC, N))
+        kp_mask = take(NC * N, (NC, N)) > 0.5
+        idx = take(NC * cap, (NC, cap)).astype(np.int32)
+        keep = take(NC * cap, (NC, cap)) > 0.5
+        ms_rows = take(ctx["ms_n"] * 8, (ctx["ms_n"], 8))
+        ff_rows = take(ctx["ff_n"] * 4, (ctx["ff_n"], 4))
+        n_inl, ransac_ok = int(diag[off]), bool(diag[off + 1] > 0.5)
+        rot_frac = float(diag[off + 2])
+        ms_total, ff_total = int(diag[off + 3]), int(diag[off + 4])
+        extra = diag[off + 5:]
         if ms_total > len(ms_rows):
             _warn_capacity("ms_rows", f"motion-stereo rows truncated ({ms_total} good > "
                            f"{len(ms_rows)} budget) — raise _MS_ROWS")
@@ -864,17 +971,8 @@ class Frontend:
         return frames, {
             "num_matched": n_matched, "num_motion_stereo": n_ms, "num_ff": n_ff,
             "ransac_inliers": n_inl, "ransac_ok": ransac_ok, "rotation_only_frac": rot_frac,
-            "extra": ctx.get("extra"),
+            "extra": extra,
         }
-
-    def fetch_signs(self, frames):
-        """Blocking fetch of this frame's descriptors (keyframes only), in
-        the bit-packed form, unpacked to the ±1 convention on the host;
-        also resolves the staged ``lm_descriptors`` updates."""
-        packed = frames[0]["stacked"]["signs_packed"].cpu().numpy().view(np.uint32)
-        stage = self._desc_stage
-        self._desc_stage = []
-        return self._apply_fetched_signs(frames, packed, stage)
 
     def _apply_fetched_signs(self, frames, packed, desc_stage):
         """Unpack the bit-packed uint32 descriptors and resolve staged
@@ -890,6 +988,43 @@ class Frontend:
             if kp < signs_np.shape[1]:
                 self._remember_descriptor(lid, signs_np[ci, kp])
         return signs_np
+
+    def dispatch_keyframe_extras(self, estimator, frames, sid: int):
+        """Start a keyframe's device work without waiting: the all-pairs
+        static-stereo program (matchStereo, Frontend.cpp:1981-2150), then
+        the copies of the bit-packed descriptors and of the stereo results
+        to the host, two copies on one stream. ``finish_keyframe_extras``
+        consumes them: at once in the synchronous loop, at the next finish
+        in the pipelined loop. Returns the pending dict."""
+        stacked = frames[0]["stacked"]
+        stereo = self._dispatch_static_stereo(estimator, frames, sid)
+        srcs = [stacked["signs_packed"]]
+        if stereo is not None:
+            srcs.append(_stereo_flat(stereo["out"]))
+        pend = {"sid": sid, "frames": frames, "stereo": stereo, "fetch": _to_host_async(srcs),
+                # the entries staged by this frame's finish_frame; the list
+                # resets at the next finish, so keep them now
+                "desc_stage": self._desc_stage}
+        self._desc_stage = []
+        return pend
+
+    def finish_keyframe_extras(self, estimator, pend):
+        """Consume a keyframe's extras: the descriptors (unpacked to the ±1
+        convention; host copies of the staged landmarks' descriptors),
+        static-stereo landmark insertion with the host-side dedup that
+        reproduces the sequential pair order's keypoint consumption, the
+        keyframe store. Returns the number of stereo-initialised
+        landmarks."""
+        host = _host_arrays(pend["fetch"])
+        frames, sid = pend["frames"], pend["sid"]
+        self._apply_fetched_signs(frames, host[0].view(np.uint32), pend["desc_stage"])
+        n_new = 0
+        if pend["stereo"] is not None:
+            fetched = _decode_stereo_flat(host[1], len(pend["stereo"]["pairs"]),
+                                          pend["stereo"]["N"])
+            n_new = self._insert_static_stereo(estimator, frames, sid, pend["stereo"], fetched)
+        self.remember_keyframe_frames(sid, frames)
+        return n_new
 
     # ------------------------------------------------------------------
     def _flush_staged(self):
@@ -949,17 +1084,6 @@ class Frontend:
             self._overlap_pairs = pairs
         return self._overlap_pairs
 
-    def match_stereo(self, estimator, frames, sid: int):
-        """Static-stereo initialisation of new landmarks across all
-        overlapping camera pairs (matchStereo, Frontend.cpp:1981-2150): one
-        device call for all pairs, then the host-side dedup that
-        reproduces the sequential pair order's keypoint consumption."""
-        pend = self._dispatch_static_stereo(estimator, frames, sid)
-        if pend is None:
-            return 0
-        fetched = tuple(x.cpu().numpy() for x in pend["out"])
-        return self._insert_static_stereo(estimator, frames, sid, pend, fetched)
-
     def _dispatch_static_stereo(self, estimator, frames, sid: int):
         """The all-pairs static-stereo program on the device; returns
         {"out": (idx_b, hp_W, good, parallel) tensors, "pairs", "N"} or
@@ -979,8 +1103,7 @@ class Frontend:
                 free[c, kp] = False
         T_WA7s = np.stack([se3_np.compose7(rec.pose, self.T_SC_np[ci]) for ci, _ in pairs])
         T_WB7s = np.stack([se3_np.compose7(rec.pose, self.T_SC_np[cj]) for _, cj in pairs])
-        gates = [cfg.stereo_epipolar_gate / float(self.cameras[ci].focal.reshape(-1)[0])
-                 for ci, _ in pairs]
+        gates = [cfg.stereo_epipolar_gate / self._fx[ci] for ci, _ in pairs]
         out = _stereo_pairs(
             self.cameras, T_WA7s, T_WB7s, gates, cfg.min_depth, cfg.max_depth,
             free[[ci for ci, _ in pairs]], free[[cj for _, cj in pairs]],
@@ -1040,7 +1163,7 @@ class Frontend:
             # too few map points to rank: the most recent first
             return sorted(cand)[-top_k:][::-1]
         cam0 = self.cameras[0]
-        fx = float(cam0.focal.reshape(-1)[0])
+        fx = self._fx[0]
         half_w = (cam0.width * 0.5) / fx * 1.2
         half_h = (cam0.height * 0.5) / fx * 1.2
 

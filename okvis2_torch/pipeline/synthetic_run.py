@@ -1,7 +1,7 @@
-"""Run the synchronous VIO loop on the synthetic dataset.
+"""Run the VIO loop on the synthetic dataset.
 
 Port of ``okvis2_tpu/pipeline/synthetic_run.py`` (star dataset, default
-trajectory, synchronous loop): renders stereo frames along the analytic
+trajectory, synchronous or pipelined loop): renders stereo frames along the analytic
 trajectory, feeds images and exact IMU through ``SlamSystem`` and
 computes the aligned ATE against ground truth (the reference's validation
 analogue: okvis_app_synchronous on EuRoC, README.md:179-206).
@@ -53,11 +53,16 @@ def run_synthetic_vio(
     dtype=torch.float32,
     device=None,
     ransac_sampler=None,
+    pipelined: bool = False,
+    force_min_pending: int = 0,
 ):
     """Returns a dict with the aligned ATE, the trajectories, per-frame
     wall times and the system. The stereo radtan rig is built in
     ``dtype``; ``ransac_sampler`` is the frontend's per-frame RANSAC hook.
-    Runs on ``device`` (None: the CUDA card; raises without one)."""
+    ``force_min_pending`` keeps at least that many frames in flight in the
+    pipelined loop (a test hook: it makes the multi-set device append
+    happen on a fixed schedule, whatever the solves' timing). Runs on
+    ``device`` (None: the CUDA card; raises without one)."""
     dev = resolve_device(device)
     cams, exts = small_rig(width, height, dtype=dtype, device=dev)
     imu_params = ImuParameters.create(g=9.81, device=dev)
@@ -65,8 +70,9 @@ def run_synthetic_vio(
         estimator_config = EstimatorConfig(
             window_slots=10, landmark_slots=384, obs_slots=2048, imu_seg_capacity=128)
     fe_cfg = FrontendConfig(detection=DetectionConfig(max_keypoints=max_keypoints))
-    slam = SlamSystem(cams, exts, imu_params, estimator_config, fe_cfg, device=dev,
-                      ransac_sampler=ransac_sampler)
+    slam = SlamSystem(cams, exts, imu_params, estimator_config, fe_cfg, pipelined=pipelined,
+                      device=dev, ransac_sampler=ransac_sampler)
+    slam._force_min_pending = force_min_pending
     ds = SyntheticDataset(cams, exts, imu_params, duration=duration, frame_rate=frame_rate,
                           n_stars=n_stars, device=dev)
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import jacfwd, vmap
 
+from okvis2_torch import forward_ad_locked
 from okvis2_torch.core import so3
 from okvis2_torch.core.se3 import Transformation
 from okvis2_torch.factors.imu_factor import imu_residual
@@ -234,6 +235,7 @@ def _reproj_val_jac(problem: WindowProblem, cameras):
     )
 
 
+@forward_ad_locked
 def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None):
     """Build the Schur-reducible normal equations at the current estimate.
 

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch.func import grad, jacfwd, vmap
 
-from okvis2_torch import resolve_device
+from okvis2_torch import forward_ad_locked, resolve_device
 from okvis2_torch.cameras.pinhole import PinholeCamera
 from okvis2_torch.core import so3
 from okvis2_torch.core.se3 import Transformation
@@ -40,6 +40,7 @@ def _axis(t: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(AXIS, dtype=t.dtype, device=t.device)
 
 
+@forward_ad_locked
 def true_state(t, device=None):
     """Ground-truth (T_WS, v_W) at time t for the canonical test trajectory."""
     t = torch.as_tensor(t, dtype=torch.float64, device=resolve_device(device))
@@ -47,6 +48,7 @@ def true_state(t, device=None):
     return Transformation(r=traj_pos(t), q=q), jacfwd(traj_pos)(t)
 
 
+@forward_ad_locked
 def imu_at(t: torch.Tensor, params: ImuParameters):
     """Exact (gyro, accel) in the sensor frame at time t (0-d tensor)."""
     u = _axis(t)
@@ -88,12 +90,14 @@ class CircleTrajectory:
     def _theta(self, t):
         return 0.15 * torch.sin(self.w * t)
 
+    @forward_ad_locked
     def true_state(self, t, device=None):
         t = torch.as_tensor(t, dtype=torch.float64, device=resolve_device(device))
         u = torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device)
         return Transformation(r=self._pos(t), q=so3.delta_q(u * self._theta(t))), \
             jacfwd(self._pos)(t)
 
+    @forward_ad_locked
     def imu_at(self, t: torch.Tensor, params: ImuParameters):
         u = torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device)
         w_S = u * grad(self._theta)(t)

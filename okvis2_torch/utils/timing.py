@@ -11,7 +11,17 @@ becomes a no-op when timing is disabled (the DO_TIMING=OFF /
 DummyTimer equivalent, Timer.hpp:170-176). A timed block that launches
 device work measures it only if it waits for the device (a readback or
 ``torch.cuda.synchronize``); ``torch.profiler`` gives the kernel-level
-detail.
+detail. Timers may be added from any thread.
+
+The SLAM loops' stages (``pipeline/slam.py``): the synchronous loop's "1
+frontend (fused)", "0 apply previous solve", "2.05 keyframe extras", "3
+optimise dispatch" ("3.1 pack_np", "3.15 upload", "3.2 solve") and "5
+marginalise"; the pipelined loop's "0 consume finished frames" (per
+finished frame: "0.1 lagged [solve|diag] fetch", "0.2 finish
+bookkeeping", "0.3 epilogue", "2.05 keyframe extras dispatch" / "finish"),
+"0.5 imu + predict", "1 prep" ("3.1 pack_np", "3.16 pack: aux maps"), "2
+upload + dispatches" ("3.15 upload"), and on the solve worker's thread
+"3.2 fused solve (worker)".
 """
 
 from __future__ import annotations

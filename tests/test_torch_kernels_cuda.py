@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the tracking program and the synchronous SLAM loop (whose detection
-runs the Harris kernel) on the card against the same on the CPU.
+and the tracking program and the synchronous and pipelined SLAM loops
+(whose detection runs the Harris kernel) on the card against the same on
+the CPU.
 
 A hand-written CUDA kernel has no CPU mode, so every test here is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it also
@@ -220,9 +221,10 @@ def test_frame_associate_card_matches_cpu(cuda):
     assert (rg[5].cpu() - rc[5]).abs().max() < 1e-4
 
 
-def _slam_system(device):
-    """The synchronous SlamSystem on ``device``: float32 cameras of the
-    small radtan rig at 192x128, 128 keypoints, an 8-state window, RANSAC
+def _slam_system(device, pipelined=False, min_pending=0):
+    """The SlamSystem on ``device`` (synchronous, or pipelined with
+    ``min_pending`` frames kept in flight): float32 cameras of the small
+    radtan rig at 192x128, 128 keypoints, an 8-state window, RANSAC
     hypotheses drawn per frame by a CPU generator seeded with the frame
     counter. ``slam.last_frames`` keeps each frame's frontend records."""
     from okvis2_torch.frontend.detection import DetectionConfig
@@ -244,8 +246,9 @@ def _slam_system(device):
         cams, exts, ImuParameters.create(g=9.81, device=device),
         EstimatorConfig(window_slots=8, landmark_slots=192, obs_slots=1024,
                         imu_seg_capacity=64),
-        fp.FrontendConfig(detection=DetectionConfig(max_keypoints=128)), device=device,
-        ransac_sampler=sampler_for)
+        fp.FrontendConfig(detection=DetectionConfig(max_keypoints=128)), pipelined=pipelined,
+        device=device, ransac_sampler=sampler_for)
+    slam._force_min_pending = min_pending
     finish = slam.frontend.finish_frame
 
     def finish_and_keep(*a, **kw):
@@ -300,6 +303,143 @@ def _describe_split(card, host, keys):
     return "\n".join(lines)
 
 
+def _small_drive_frames():
+    """The 10 frames (uint8) and IMU samples of the small drive: the star
+    dataset at 192x128, 4 Hz, 2.5 s."""
+    from okvis2_torch.imu.preintegration import ImuParameters
+    from okvis2_torch.pipeline.dataset import SyntheticDataset
+    from okvis2_torch.pipeline.synthetic_run import small_rig
+
+    cams, exts = small_rig(192, 128, dtype=torch.float64, device="cpu")
+    ds = SyntheticDataset(cams, exts, ImuParameters.create(g=9.81, device="cpu"),
+                          n_stars=1500, duration=2.5, frame_rate=4.0, device="cpu")
+    frames, imu = [], []
+    for ev in ds.stream():
+        if ev[0] == "imu":
+            imu.append(ev[1:])
+        else:
+            frames.append((ev[1], np.stack([(np.clip(im, 0.0, 1.0) * 255.0 + 0.5)
+                                            .astype(np.uint8) for im in ev[2]])))
+    return frames, imu
+
+
+def _drive(slam, frames, imu):
+    """Feed ``frames`` and ``imu`` through ``slam`` as the bench does; drain
+    a pipelined loop. Returns {sid: (pose, keyframe flag)} from the
+    (lagged, in the pipelined loop) callbacks."""
+    recs = {}
+    slam.set_optimised_graph_callback(
+        lambda t, sid, pose, tr: recs.__setitem__(sid, (pose, tr.is_keyframe)))
+    ii = 0
+    for t, imgs in frames:
+        while ii < len(imu) and imu[ii][0] <= t + 1e-9:
+            slam.add_imu_measurement(*imu[ii])
+            ii += 1
+        slam.add_images(t, list(imgs))
+        slam.process_frame()
+    slam.finish()
+    return recs
+
+
+def _spread(a, b):
+    """Largest position difference between two runs' per-frame poses."""
+    assert a.keys() == b.keys()
+    return max(float(np.abs(a[s][0][:3] - b[s][0][:3]).max()) for s in a)
+
+
+def test_pipelined_loop_on_card(cuda, monkeypatch):
+    """The pipelined loop on the card, two frames kept in flight (every
+    solve from the third frame on appends three sets), on the small drive.
+
+    Its fused solves on identical inputs: each solve the card ran, with
+    its inputs, is solved again in float64 on the card and on the CPU:
+    poses within 1e-8, landmark points within 1e-6 m, equal LM iterations
+    (test_slam_loop_card_matches_cpu's bars). Run to run: the drive run twice on the
+    card gives equal keyframe flags and poses within the run-to-run spread
+    that the synchronous loop shows on the same card (two runs of it, here;
+    0 when both loops are deterministic)."""
+    from okvis2_torch.graph import estimator as est_mod
+    from okvis2_torch.solver.packed_solve import decode_solved, solve_packed_fused
+
+    frames, imu = _small_drive_frames()
+    solves = []
+
+    def fused_and_keep(problem, aux, sets, diag, cameras, imu_params, config):
+        out = solve_packed_fused(problem, aux, sets, diag, cameras, imu_params, config)
+        if out.is_cuda:
+            solves.append(((problem.to(device="cpu"), {k: v.cpu() for k, v in aux.items()},
+                            tuple(tuple(x.cpu() for x in m) for m in sets), diag.cpu()),
+                           config, out.cpu()))
+        return out
+
+    monkeypatch.setattr(est_mod, "solve_packed_fused", fused_and_keep)
+    n0 = harris_cuda.harris_nms_cuda.launches
+    pipe = [_slam_system(cuda, pipelined=True, min_pending=2) for _ in range(2)]
+    runs = [_drive(s, frames, imu) for s in pipe]
+    assert harris_cuda.harris_nms_cuda.launches - n0 == 2 * len(frames) == 20
+    assert len(solves) == 2 * len(frames)
+    monkeypatch.setattr(est_mod, "solve_packed_fused", solve_packed_fused)
+    sync = [_drive(_slam_system(cuda), frames, imu) for _ in range(2)]
+    for r in runs + sync:
+        assert len(r) == len(frames)
+    assert [runs[0][s][1] for s in sorted(runs[0])] == [runs[1][s][1] for s in sorted(runs[1])]
+    spread_pipe, spread_sync = _spread(*runs), _spread(*sync)
+    print(f"run-to-run spread on the card: pipelined {spread_pipe:.3e} m, synchronous "
+          f"{spread_sync:.3e} m")
+    assert spread_pipe <= max(spread_sync, 1e-12), (spread_pipe, spread_sync)
+
+    est = pipe[0].estimator
+    S, L = est.cfg.window_slots, est.cfg.landmark_slots
+    f64 = torch.float64
+    cams_cpu = tuple(c.to(device="cpu", dtype=f64) for c in est.cameras)
+    imu_cpu = est.imu_params.to(device="cpu", dtype=f64)
+    pts = lambda hp: hp[:, :3] / np.where(np.abs(hp[:, 3:]) > 1e-9, hp[:, 3:], 1.0)  # noqa: E731
+    worst = [0.0, 0.0]
+    n_three = 0
+    for (problem, aux, sets, diag), config, _ in solves[:len(frames)]:
+        n_three += int((aux["maps"] >= 0).any(dim=1).sum()) == 3
+        to64 = lambda x: x.to(f64) if x.is_floating_point() else x  # noqa: E731
+        args64 = (problem.to(dtype=f64), {k: to64(v) for k, v in aux.items()},
+                  tuple(tuple(to64(x) for x in m) for m in sets), diag.to(f64))
+        ref = solve_packed_fused(*args64, cams_cpu, imu_cpu, config)
+        got = solve_packed_fused(
+            args64[0].to(device=cuda), {k: v.to(cuda) for k, v in args64[1].items()},
+            tuple(tuple(x.to(cuda) for x in m) for m in args64[2]), args64[3].to(cuda),
+            tuple(c.to(dtype=f64) for c in est.cameras), est.imu_params.to(dtype=f64), config)
+        (pa, _, la, _, sa), (pb, _, lb, _, sb) = (decode_solved(x[:est.solve_out_size()], S, L, 2)
+                                                  for x in (got, ref))
+        assert sa["iterations"] == sb["iterations"] and sa["n_obs"] == sb["n_obs"]
+        worst = [max(worst[0], float(np.abs(pa - pb).max())),
+                 max(worst[1], float(np.abs(pts(la) - pts(lb)).max()))]
+    print(f"fused solves on identical inputs, card vs CPU in float64: poses {worst[0]:.3e}, "
+          f"landmark points {worst[1]:.3e} m; {n_three} of {len(frames)} appended three "
+          "non-empty sets")
+    assert worst[0] < 1e-8 and worst[1] < 1e-6, worst
+    # the first frames are dispatched before any frame is finished, against
+    # an empty map; later solves append three frames' matches
+    assert n_three >= 3, n_three
+
+
+def test_pipelined_solve_error_reaches_caller(cuda, monkeypatch):
+    """A failing fused solve on the card raises in the loop's thread (at the
+    frame's finish); nothing runs the solve another way."""
+    from okvis2_torch.graph import estimator as est_mod
+    from okvis2_torch.solver.packed_solve import solve_packed_fused
+
+    calls = []
+
+    def fail_third(*a):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("fused solve failed")
+        return solve_packed_fused(*a)
+
+    monkeypatch.setattr(est_mod, "solve_packed_fused", fail_third)
+    frames, imu = _small_drive_frames()
+    with pytest.raises(RuntimeError, match="fused solve failed"):
+        _drive(_slam_system(cuda, pipelined=True), frames[:5], imu)
+
+
 def test_slam_loop_card_matches_cpu(cuda, monkeypatch):
     """Ten frames of the synchronous loop on the card and on the CPU in
     lockstep, on the same uint8 frames, IMU and RANSAC draws; the drive
@@ -320,21 +460,9 @@ def test_slam_loop_card_matches_cpu(cuda, monkeypatch):
     by ~1e-11 on the CPU. The test prints both sensitivities beside the
     card-CPU differences in float32 and float64."""
     from okvis2_torch.graph import estimator as est_mod
-    from okvis2_torch.imu.preintegration import ImuParameters
-    from okvis2_torch.pipeline.dataset import SyntheticDataset
-    from okvis2_torch.pipeline.synthetic_run import small_rig
     from okvis2_torch.solver.packed_solve import decode_solved
 
-    cams, exts = small_rig(192, 128, dtype=torch.float64, device="cpu")
-    ds = SyntheticDataset(cams, exts, ImuParameters.create(g=9.81, device="cpu"),
-                          n_stars=1500, duration=2.5, frame_rate=4.0, device="cpu")
-    frames, imu = [], []
-    for ev in ds.stream():
-        if ev[0] == "imu":
-            imu.append(ev[1:])
-        else:
-            frames.append((ev[1], np.stack([(np.clip(im, 0.0, 1.0) * 255.0 + 0.5)
-                                            .astype(np.uint8) for im in ev[2]])))
+    frames, imu = _small_drive_frames()
     solves, solve = [], est_mod.solve_packed
 
     def solve_and_keep(problem, cameras, imu_params, config):

@@ -173,6 +173,7 @@ DEVICE_NONE_ENTRY_POINTS = {
     "frame_associate": lambda: tfp.frame_associate(*_frame_associate_args()),
     "Estimator": lambda: test_.Estimator(*_rig_args()),
     "SlamSystem": lambda: tslam.SlamSystem(*_rig_args()),
+    "SlamSystem pipelined": lambda: tslam.SlamSystem(*_rig_args(), pipelined=True),
     "run_synthetic_vio": lambda: tsr.run_synthetic_vio(duration=0.5),
 }
 
@@ -195,13 +196,14 @@ def _rig_args():
         device="cpu")
 
 
-@pytest.mark.parametrize("option", ["pipelined", "do_loop_closures", "cnn_params",
+@pytest.mark.parametrize("option", ["loop_closure_config", "do_loop_closures", "cnn_params",
                                     "add_depth_image"])
 def test_unported_options_raise(option):
-    """The pipelined loop, loop closure, CNN suppression and depth-aided
+    """Loop closure (and its config), CNN suppression and depth-aided
     initialisation are not ported: asking for them raises, naming the
     ROADMAP item, instead of being ignored."""
-    kw = {"pipelined": {"pipelined": True}, "do_loop_closures": {"do_loop_closures": True},
+    kw = {"loop_closure_config": {"loop_closure_config": object()},
+          "do_loop_closures": {"do_loop_closures": True},
           "cnn_params": {"cnn_params": {}}, "add_depth_image": {}}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         s = tslam.SlamSystem(*_rig_args(), device="cpu", **kw)
