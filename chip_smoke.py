@@ -58,6 +58,19 @@ hand-written kernel against its plain PyTorch version:
                frames/s of process_frame (which does not wait for the
                card), the stage split, the lag histogram; the first a
                profiled frame with two frames in flight
+ 10. slam loop closure  both loops with loop closure on
+               (do_loop_closures, LoopClosureConfig(exclude_recent=2)) on
+               phase 8's pose-graph drive (LOOP_DRIVES): the synchronous
+               loop must close the JAX run's loop, on its frame and with its
+               edge, at phase 8's ATE bar and with phase 8's map, window and
+               marginalisation checks, and prints the closure frame's stage
+               split and the full-graph solve (ms, LM iterations, device
+               kernels, capacities S/L/O/R); at that closure the full-graph
+               solve queued on the solve worker is held against the inline
+               one (QUEUED_FG_TOL_M, QUEUED_FG_TOL_HP). The pipelined loop (its own lag) must make as many
+               closures and drift-budget rejections as the JAX run at the
+               same schedule, at phase 9's ATE rule. Launch counts are zeroed
+               just before each drive and read just after
 
 Every check raises on failure, so any failing phase exits non-zero. The
 line before the last is the kernels' JSON record; the last line is
@@ -65,6 +78,7 @@ line before the last is the kernels' JSON record; the last line is
 before printing any result.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -157,6 +171,40 @@ PIPELINED_DRIVES = {
 # the share of a pipelined drive's frames, from the third on, that must run
 # at the drive's schedule (frames in flight after the dispatch)
 MIN_SCHEDULE_SHARE = 0.9
+# phase 10: loop closure on phase 8's pose-graph drive (one circle, 40
+# frames at 8 Hz, 2 window keyframes), with LoopClosureConfig(
+# exclude_recent=2) in place of the default 5: one circle makes 5 keyframes
+# and place recognition queries only once its database holds
+# exclude_recent + 2 frames, so at 5 the circle never queries. The JAX
+# package on the same frames (tools/e2e_reference_jax.py, CPU, float32):
+# - synchronous ("40 8 circle 2 0 0 4096 1 2"): one closure, at frame 37,
+#   loop edge between states 0 and 37; ATE 4.607 mm (4.133 mm without loop
+#   closure); keyframes at frames 0, 8, 18, 26, 37; edges after it
+#   [[0, 37], [26, 18]];
+# - pipelined, one frame kept in flight, the card's schedule ("40 8 circle
+#   2 1 1 4096 1 2"): no closure and no drift-budget rejection (the last
+#   verification: "ransac inliers 4/78"), ATE 2.718 m: the JAX pipelined
+#   loop diverges on this drive at this lag (ROADMAP C), so the drive
+#   checks its mechanics: the same decisions, phase 9's ATE rule.
+LOOP_DRIVES = {
+    "slam loop closure": dict(
+        frames=40, rate=8.0, trajectory="circle", num_keyframes=2, warmup=4, exclude_recent=2,
+        jax_ate_m=0.0046071292372885176, min_edges=1, profile=False,
+        jax_closure_frames=[37], jax_loop_edges=[[0, 37]], pipelined=False),
+    "slam loop closure pipelined": dict(
+        frames=40, rate=8.0, trajectory="circle", num_keyframes=2, warmup=4, exclude_recent=2,
+        jax_ate_m=2.718218399296934, jax_closures=0, jax_rejected=0, min_pending=0,
+        pipelined=True),
+}
+# the full-graph solve queued on the solve worker against the inline one on
+# the same state, both in float64: poses within 1e-6 m, landmarks as unit
+# homogeneous vectors within 1e-6 (a landmark near infinity, w ~ 1e-6,
+# turns a last-bit difference into metres in its point). In float32 the
+# solve's scatter-adds (index_add_) sum in another order on every run and
+# its 15 LM iterations carry that to 4.8e-7-2.3e-5 m in poses on the card
+# (two runs), so the float32 pair is logged, not held
+QUEUED_FG_TOL_M, QUEUED_FG_TOL_HP = 1e-6, 1e-6
+QUEUED_FG_F64_ITERATIONS = 5
 
 
 def log(msg):
@@ -678,6 +726,7 @@ def slam_drive(name, d, pipelined):
     from okvis2_torch.graph import estimator as est_mod
     from okvis2_torch.pipeline.dataset import SyntheticDataset
     from okvis2_torch.pipeline.frontend_pipeline import FrontendConfig
+    from okvis2_torch.pipeline.full_graph import LoopClosureConfig
     from okvis2_torch.pipeline.slam import SlamSystem
 
     n_frames, rate, tag = d["frames"], d["rate"], f"[{name}]"
@@ -708,7 +757,11 @@ def slam_drive(name, d, pipelined):
                                       num_keyframes=d["num_keyframes"])
     fe_cfg = FrontendConfig(detection=DetectionConfig(max_keypoints=N_KP),
                             map_match_capacity=TRACK_CAP)
-    slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=pipelined, device=DEVICE)
+    lc = d.get("exclude_recent")
+    slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=pipelined, device=DEVICE,
+                      do_loop_closures=lc is not None,
+                      loop_closure_config=None if lc is None else LoopClosureConfig(
+                          exclude_recent=lc))
     est = slam.estimator
     solves = []
     apply_solved = est.apply_solved_flat
@@ -775,7 +828,12 @@ def check_drive(name, d, run, gt, windows, kf, launches):
     assert max(windows) <= run.est_cfg.window_slots, f"{name}: window sizes {windows}"
     assert n_left >= 1, f"{name}: no state left the window (no marginalisation)"
     assert len(edges) >= d["min_edges"], f"{name}: {len(edges)} pose-graph edges"
-    assert len(run.factors) == len(edges), (len(run.factors), len(edges))
+    n_marg = sum(e.kind == "marg" for e in est.pose_graph_edges)
+    if est.pose_graph_edges and "exclude_recent" in d:
+        # a closure gives the marginalisation edges of its span back
+        assert len(run.factors) >= n_marg, (len(run.factors), n_marg)
+    else:
+        assert len(run.factors) == len(edges) == n_marg, (len(run.factors), len(edges))
     n_oct = run.fe_cfg.detection.octaves
     assert launches == n_frames * n_oct, (
         f"harris_nms launched {launches} times in {n_frames} frames x {n_oct} octave")
@@ -929,6 +987,253 @@ def phase_pipelined(card, name, d):
     return {"harris_nms": launches}
 
 
+LOOP_STAGES = ("2.06 place recognition", "2.08 loop closure", "2.081 loop verify",
+               "2.082 full-graph pack", "2.083 full-graph solve")
+
+
+def stage_totals(names):
+    from okvis2_torch.utils.timing import Timing
+
+    return {k: (Timing.get(k).total if Timing.get(k) else 0.0) for k in names}
+
+
+def queued_against_inline(tag, lb, fg_log):
+    """Wrap ``lb.optimise_full_graph`` so that each closure's full-graph
+    solve runs inline (the call the loop made, whose result stays) and, on
+    the state before it, again queued on the estimator's solve worker and
+    applied by ``apply_pending_full_graph``: in float32 as the loop runs it
+    (the two differ where the solve's scatter-adds sum in another order,
+    logged), and both ways again in float64 at QUEUED_FG_F64_ITERATIONS LM
+    iterations (the queue, the worker's stream and the apply are the same
+    at any count; a float64 solve takes far longer on the card), where the
+    queued solve must give the inline one's poses within QUEUED_FG_TOL_M
+    and its landmarks (unit homogeneous vectors) within QUEUED_FG_TOL_HP.
+    The wall time of each run, the inline solve's capacities and iterations, and the device
+    kernels of one more float32 solve of the same pack under the profiler
+    go to ``fg_log``; the extra runs are left out of the stage timers and
+    their wall time is logged as "extra_ms"."""
+    from okvis2_torch.pipeline import full_graph as fg_mod
+    from okvis2_torch.utils.timing import Timing
+
+    inline = lb.optimise_full_graph
+
+    def snapshot(est):
+        """What a full-graph solve reads and writes: poses, speed/biases,
+        landmarks, and the IMU preintegration cache (linearised at earlier
+        biases until the apply clears it)."""
+        return ({s: (r.pose.copy(), r.speed_bias.copy()) for s, r in est.states.items()},
+                {lid: lm.hp_W.copy() for lid, lm in est.landmarks.items()},
+                dict(est._pre_cache))
+
+    def restore(est, snap):
+        for s, (pose, sb) in snap[0].items():
+            est.states[s].pose, est.states[s].speed_bias = pose.copy(), sb.copy()
+        for lid, hp in snap[1].items():
+            est.landmarks[lid].hp_W = hp.copy()
+        est._pre_cache.clear()
+        est._pre_cache.update(snap[2])
+
+    def queued(est, before):
+        restore(est, before)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lb.dispatch_full_graph(est, async_solve=True)
+        lb.apply_pending_full_graph(est)
+        ms = (time.perf_counter() - t) * 1e3
+        est.close_solve_worker()
+        return snapshot(est), ms
+
+    def gaps(a, b):
+        unit = lambda hp: hp / np.linalg.norm(hp)  # noqa: E731
+        d_pose = max(float(np.abs(a[0][s][0][:3] - b[0][s][0][:3]).max()) for s in a[0])
+        d_hp = max((float(np.abs(unit(a[1][k]) - unit(b[1][k])).max()) for k in a[1]),
+                   default=0.0)
+        return d_pose, d_hp
+
+    def compare(est):
+        before = snapshot(est)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = inline(est)
+        inline_ms = (time.perf_counter() - t) * 1e3
+        info = dict(lb.last_full_graph)
+        got = snapshot(est)
+        t_extra = time.perf_counter()
+        Timing.enabled = False
+        saved = (est.dtype, est.imu_params, lb.cameras, lb.cfg)
+        try:
+            q32, queued_ms = queued(est, before)
+            f64 = torch.float64
+            est.dtype, est.imu_params = f64, est.imu_params.to(dtype=f64)
+            lb.cameras = tuple(c.to(dtype=f64) for c in lb.cameras)
+            lb.cfg = dataclasses.replace(lb.cfg, full_graph_iterations=QUEUED_FG_F64_ITERATIONS)
+            restore(est, before)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            inline(est)
+            inline64_ms = (time.perf_counter() - t) * 1e3
+            i64 = snapshot(est)
+            q64, queued64_ms = queued(est, before)
+            est.dtype, est.imu_params, lb.cameras, lb.cfg = saved
+            # the device kernels of one full-graph solve: the same pack once
+            # more under the profiler (its time is not used)
+            restore(est, before)
+            prob, *_ = lb.pack_full_problem(est)
+            n_kernels = profile_kernels(lambda: fg_mod._solve_full_graph(
+                prob, lb.cameras, est.imu_params,
+                fg_mod.SolverConfig(max_iterations=lb.cfg.full_graph_iterations)).cpu())
+            restore(est, got)
+        finally:
+            est.dtype, est.imu_params, lb.cameras, lb.cfg = saved
+            Timing.enabled = True
+        extra_ms = (time.perf_counter() - t_extra) * 1e3
+        d32, d64 = gaps(got, q32), gaps(i64, q64)
+        fg_log.append(dict(inline_ms=inline_ms, queued_ms=queued_ms, extra_ms=extra_ms,
+                           d32=d32, d64=d64, kernels=n_kernels, **info))
+        log(f"{tag} full-graph solve at the closure: inline {inline_ms:.3f} ms, queued on the "
+            f"solve worker and applied {queued_ms:.3f} ms; {info['iterations']} LM iterations, "
+            f"capacities S/L/O/R {info['S']}/{info['L']}/{info['O']}/{info['R']} (used "
+            f"{list(info['used'])}), {n_kernels} device kernels per solve; queued vs inline "
+            f"(poses m, landmarks as unit homogeneous vectors): float32 {d32[0]:.3e} "
+            f"{d32[1]:.3e}, float64 at {QUEUED_FG_F64_ITERATIONS} iterations {d64[0]:.3e} "
+            f"{d64[1]:.3e} (bars {QUEUED_FG_TOL_M:g}, {QUEUED_FG_TOL_HP:g}; inline "
+            f"{inline64_ms:.3f} ms, queued {queued64_ms:.3f} ms)")
+        assert d64[0] < QUEUED_FG_TOL_M and d64[1] < QUEUED_FG_TOL_HP, d64
+        return stats
+
+    lb.optimise_full_graph = compare
+
+
+def profile_kernels(fn):
+    """The number of device kernels ``fn`` launches (torch.profiler), or
+    None when the profiler sees no device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def phase_loop_sync(card, name, d):
+    """Phase 10, the synchronous drive: phase 8's loop with loop closure;
+    returns the kernels' launch counts over its frames."""
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.utils.timing import Timing
+
+    n_frames, run = d["frames"], slam_drive(name, d, pipelined=False)
+    slam, est, tag = run.slam, run.est, run.tag
+    lb = slam.loop_backend
+    fg_log = []
+    queued_against_inline(tag, lb, fg_log)
+    gt, frame_s, windows, kf, closures, split_of = [], [], [], [], [], {}
+    try:
+        torch.cuda.synchronize()
+        harris_nms_cuda.launches = 0
+        for i in range(n_frames):
+            if i == d["warmup"]:
+                Timing.reset()
+            t_i, pose = run.feed_frame()
+            n0, before = lb.num_loop_closures, stage_totals(LOOP_STAGES)
+            ta = time.perf_counter()
+            slam.process_frame()
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - ta)
+            if lb.num_loop_closures > n0:
+                closures.append(i)
+                after = stage_totals(LOOP_STAGES)
+                split_of[i] = {k: round((after[k] - before[k]) * 1e3, 3) for k in LOOP_STAGES}
+            gt.append((t_i, pose))
+            windows.append(len(est.window))
+            kf.append(bool(slam.tracking.is_keyframe))
+        launches = harris_nms_cuda.launches
+    finally:
+        run.restore()
+    loop_edges = [[e.id_i, e.id_j] for e in est.pose_graph_edges if e.kind == "loop"]
+    log(f"{tag} closures at frames {closures} (the JAX run: {d['jax_closure_frames']}), loop "
+        f"edges {loop_edges} (JAX {d['jax_loop_edges']}), rejected by the drift budget "
+        f"{lb.num_rejected_by_budget}, verify margins {[round(m, 3) for m in lb.verify_margins]}")
+    assert closures == d["jax_closure_frames"], closures
+    assert loop_edges == d["jax_loop_edges"], loop_edges
+    assert len(fg_log) == len(closures), fg_log
+    check_drive(name, d, run, gt, windows, kf, launches)
+
+    steady = [s for i, s in enumerate(frame_s) if i >= d["warmup"] and i not in closures]
+    log(f"{tag} process_frame {len(steady) / sum(steady):.3f} frames/s over frames "
+        f"{d['warmup'] + 1}-{n_frames} without the closure frames (median "
+        f"{statistics.median(steady) * 1e3:.3f} ms), harris_nms launches {launches} ({card})")
+    for i, fg in zip(closures, fg_log):
+        # the closure frame's own time: without the queued solve and the
+        # profiled solve run for the comparison above
+        split_of[i]["2.08 loop closure"] = round(split_of[i]["2.08 loop closure"]
+                                                 - fg["extra_ms"], 3)
+        log(f"{tag} closure frame {i}: {frame_s[i] * 1e3 - fg['extra_ms']:.3f} ms (the "
+            f"comparison's extra {fg['extra_ms']:.3f} ms left out), of it "
+            + json.dumps(split_of[i]))
+    return {"harris_nms": launches}
+
+
+def phase_loop_pipelined(card, name, d):
+    """Phase 10, the pipelined drive: phase 9's loop with loop closure, at
+    its own lag; returns the kernels' launch counts over its frames."""
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.pipeline.trajectory import ate_rmse
+    from okvis2_torch.utils.timing import Timing
+
+    n_frames, run = d["frames"], slam_drive(name, d, pipelined=True)
+    slam, est, tag = run.slam, run.est, run.tag
+    slam._force_min_pending = d["min_pending"]
+    lb = slam.loop_backend
+    gt, frame_s, closures = [], [], []
+    try:
+        torch.cuda.synchronize()
+        harris_nms_cuda.launches = 0
+        for i in range(n_frames):
+            if i == d["warmup"]:
+                Timing.reset()
+            t_i, pose = run.feed_frame()
+            n0 = lb.num_loop_closures
+            ta = time.perf_counter()
+            slam.process_frame()
+            frame_s.append(time.perf_counter() - ta)
+            closures += [i] * (lb.num_loop_closures - n0)
+            gt.append((t_i, pose))
+        n0 = lb.num_loop_closures
+        slam.finish()
+        closures += ["finish"] * (lb.num_loop_closures - n0)
+        torch.cuda.synchronize()
+        launches = harris_nms_cuda.launches
+    finally:
+        run.restore()
+    traj = est.trajectory()
+    ate = ate_rmse(traj, gt, align=True)
+    assert np.isfinite(np.stack([p for _, p in traj])).all() and len(traj) == n_frames
+    jax_ate = d["jax_ate_m"]
+    bar = 1.5 * jax_ate + 0.005
+    if jax_ate <= 0.10:
+        bar = min(bar, 0.10)
+    steady = frame_s[d["warmup"]:]
+    pr = Timing.get("2.06 place recognition")
+    log(f"{tag} {n_frames} frames: ATE {ate:.6f} m (bar {bar:.6f} m; the JAX package at the "
+        f"same schedule {jax_ate:.6f} m), closures {lb.num_loop_closures} at {closures} (JAX "
+        f"{d['jax_closures']}), rejected by the drift budget {lb.num_rejected_by_budget} (JAX "
+        f"{d['jax_rejected']}), last verification {lb.last_verify_info!r}, landmarks "
+        f"{len(est.landmarks)}")
+    log(f"{tag} process_frame {len(steady) / sum(steady):.3f} frames/s over frames "
+        f"{d['warmup'] + 1}-{n_frames} (median {statistics.median(steady) * 1e3:.3f} ms), "
+        f"\"2.06 place recognition\" {pr.n if pr else 0} calls, "
+        f"{(pr.total / pr.n * 1e3) if pr else 0.0:.3f} ms each, harris_nms launches "
+        f"{launches} ({card})")
+    assert ate < bar, f"{name}: ATE {ate:.6f} m against a bar of {bar:.6f} m"
+    assert lb.num_loop_closures == d["jax_closures"], lb.num_loop_closures
+    assert lb.num_rejected_by_budget == d["jax_rejected"], lb.num_rejected_by_budget
+    n_oct = run.fe_cfg.detection.octaves
+    assert launches == n_frames * n_oct, launches
+    return {"harris_nms": launches}
+
+
 def check_two_pose(tag, factors):
     """Each two-pose factor the card made, against the same function on the
     CPU on the same inputs."""
@@ -1005,6 +1310,11 @@ def main():
     import okvis2_torch  # noqa: F401  (fails outside a checkout of the repo)
     from okvis2_torch.utils.synthetic import textured_stereo_pair
 
+    t_start = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] phases up to {phase}: {time.perf_counter() - t_start:.1f} s")
+
     card = phase_device()
     phase_build()
     imgs = torch.tensor(textured_stereo_pair(H, W, seed=0), dtype=torch.float32, device=DEVICE)
@@ -1012,10 +1322,17 @@ def main():
     det_cfg = phase_frontend(imgs)
     window = phase_solve()
     launches = phase_hotpath(imgs, det_cfg, window, card)
+    done("6 hot path")
     launches_tracking = phase_tracking(card)
+    done("7 tracking")
     launches_slam = {name: phase_slam(card, name, d) for name, d in SLAM_DRIVES.items()}
+    done("8 slam")
     launches_slam.update({name: phase_pipelined(card, name, d)
                           for name, d in PIPELINED_DRIVES.items()})
+    done("9 slam pipelined")
+    launches_slam.update({name: (phase_loop_pipelined if d["pipelined"] else phase_loop_sync)(
+        card, name, d) for name, d in LOOP_DRIVES.items()})
+    done("10 slam loop closure")
     for k in kernels:
         by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
         by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})

@@ -33,8 +33,8 @@ applies it. The pipelined loop's solve is split in three:
 in flight on the host, ``upload_fused_solve`` copies them to the device,
 and ``dispatch_fused_solve`` hands the fused append + solve to the solve
 worker; ``apply_solved_flat`` applies its result when the loop consumes
-the frame. Left out here: loop
-closure's ``reactivate_loop_states``.
+the frame. Loop closure's hooks are ``reactivate_loop_states`` and
+``LandmarkRecord.packed_rows`` (the full-graph pack's observation rows).
 """
 
 from __future__ import annotations
@@ -265,7 +265,8 @@ class _ObsArena:
 
 
 class LandmarkRecord:
-    __slots__ = ("id", "hp_W", "quality", "initialised", "obs", "info_scale", "obs_rev")
+    __slots__ = ("id", "hp_W", "quality", "initialised", "obs", "info_scale", "obs_rev",
+                 "_row_cache")
 
     def __init__(self, lid, hp_W):
         self.id = lid
@@ -273,11 +274,26 @@ class LandmarkRecord:
         self.quality = 0.0
         self.initialised = False
         self.obs_rev = 0
+        self._row_cache = None  # (obs_rev, rows [n,5])
         # obs: (state_id, cam_idx, kp_idx) -> (u, v, size)
         self.obs: Dict[Tuple[int, int, int], Tuple[float, float, float]] = _ObsDict(self)
         # information scale on all observations of this landmark (CNN
         # suppression, Frontend.cpp:986-1011)
         self.info_scale = 1.0
+
+    def packed_rows(self) -> np.ndarray:
+        """[n,5] float rows (sid, cam, u, v, 8/size) of the observations, in
+        their insertion order; cached until the observations change."""
+        cache = self._row_cache
+        if cache is not None and cache[0] == self.obs_rev:
+            return cache[1]
+        if self.obs:
+            rows = np.array([(s, ci, u, v, 8.0 / size)
+                             for (s, ci, _kp), (u, v, size) in self.obs.items()], np.float64)
+        else:
+            rows = np.zeros((0, 5), np.float64)
+        self._row_cache = (self.obs_rev, rows)
+        return rows
 
 
 class PoseGraphEdge:
@@ -962,13 +978,24 @@ class Estimator:
         raises the solve's exception, "inputs": the tensors the job reads}.
         Hold the job until its result has been read."""
         assert len(match_sets) == MAX_APPEND_SETS
-        if self._solve_worker is None:
-            self._solve_worker = SolveWorker(self.device)
         self._solve_t0 = time.perf_counter()
         sets = tuple((m["idx"], m["keep"], m["xy"], m["size"]) for m in match_sets)
         inputs = (problem, aux_dev, sets, diag, self.cameras, self.imu_params, config)
-        return {"future": self._solve_worker.submit(solve_packed_fused, *inputs),
+        return {"future": self.solve_worker().submit(solve_packed_fused, *inputs),
                 "inputs": inputs}
+
+    def solve_worker(self) -> SolveWorker:
+        """The pipelined loop's solve worker, created on first use."""
+        if self._solve_worker is None:
+            self._solve_worker = SolveWorker(self.device)
+        return self._solve_worker
+
+    def close_solve_worker(self):
+        """End the solve worker's thread after its queued jobs (a later
+        ``solve_worker()`` starts a new one)."""
+        if self._solve_worker is not None:
+            self._solve_worker.close()
+            self._solve_worker = None
 
     def solve_out_size(self) -> int:
         """Length of solve_packed's flat output for this configuration."""
@@ -1249,6 +1276,29 @@ class Estimator:
         # remove this frame's observations from the live graph
         self._strip_observations(sid)
         rec.is_pose_graph_frame = True
+
+    def reactivate_loop_states(self, chain: List[int]) -> int:
+        """Re-admit the oldest ``num_loop_closure_frames`` states of a
+        closed loop into the window, unfrozen (addLoopClosureFrame's
+        loop-span unfreeze, ViSlamBackend.cpp:1284-1409; numLoopClosureFrames,
+        config/euroc.yaml:77). Returns how many joined the window."""
+        n = self.cfg.num_loop_closure_frames
+        if n <= 0:
+            return 0
+        added = 0
+        for sid in chain[:n]:
+            rec = self.states.get(sid)
+            if rec is None:
+                continue
+            rec.frozen = False
+            if sid not in self.window:
+                rec.in_window = True
+                pos = 0  # keep the window time-ordered
+                while pos < len(self.window) and self.window[pos] < sid:
+                    pos += 1
+                self.window.insert(pos, sid)
+                added += 1
+        return added
 
     def expand_keyframe(self, sid: int, min_shared: int = 12) -> bool:
         """Frontier re-activation (expandKeyframe, ViSlamBackend.cpp:

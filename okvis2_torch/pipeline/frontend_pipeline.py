@@ -655,7 +655,9 @@ class Frontend:
     before the previous frames are finished, and ``finish_frame`` on the
     host copy of the frame's diagnostics that came back with its solve; a
     keyframe's extras start at its finish and are consumed at the next
-    one.
+    one. ``detect_and_describe``, ``fetch_signs`` and ``match_stereo`` run
+    those steps alone, waiting for the device (loop closure's tests and
+    tools).
 
     The program and its per-frame inputs run at the cameras' precision:
     float32 on the card, as the JAX package's frame program and its
@@ -988,6 +990,63 @@ class Frontend:
             if kp < signs_np.shape[1]:
                 self._remember_descriptor(lid, signs_np[ci, kp])
         return signs_np
+
+    def detect_and_describe(self, images):
+        """Detection and description of a rig's images outside the tracking
+        program (loop-closure tests and tools): one batched call when the
+        cameras share a resolution, else one per camera. Returns one dict
+        per camera (host xy, size, mask, signs_np) sharing "stacked", the
+        device-resident xy, mask, signs and signs_packed [NC,N,...]."""
+        dt = self.cameras[0].focal.dtype
+
+        def on_device(img):  # uint8 widens to the cameras' dtype; floats stay
+            img = torch.as_tensor(np.asarray(img), device=self.device)
+            return img.to(dt) * (1.0 / 255.0) if img.dtype == torch.uint8 else img
+
+        if len({np.shape(img) for img in images}) == 1:
+            stack = torch.stack([on_device(img) for img in images])
+            det = detect_keypoints_batch(stack, self.cfg.detection)
+            desc = [describe_keypoints(stack[ci], det["xy"][ci], det["size"][ci], det["mask"][ci])
+                    for ci in range(len(images))]
+            groups = [(det["xy"], det["size"], det["mask"], torch.stack([d["signs"] for d in desc]),
+                       torch.stack([d["packed"] for d in desc]))]
+        else:
+            groups = []
+            for img in images:
+                img = on_device(img)
+                det = detect_keypoints_batch(img[None], self.cfg.detection)
+                d = describe_keypoints(img, det["xy"][0], det["size"][0], det["mask"][0])
+                groups.append((det["xy"], det["size"], det["mask"], d["signs"][None],
+                               d["packed"][None]))
+        out = []
+        for xy, size, mask, signs, packed in groups:
+            stacked = {"xy": xy, "mask": mask, "signs": signs, "signs_packed": packed}
+            xy_np, size_np, mask_np, signs_np = (x.cpu().numpy() for x in (xy, size, mask, signs))
+            out += [{"xy": xy_np[c], "size": size_np[c], "mask": mask_np[c],
+                     "signs_np": signs_np[c], "stacked": stacked, "cam": len(out) + c}
+                    for c in range(xy.shape[0])]
+        return out
+
+    def fetch_signs(self, frames):
+        """Waiting fetch of a frame's bit-packed descriptors, unpacked to the
+        ±1 convention into each camera's "signs_np"; resolves the staged
+        ``lm_descriptors`` host copies. Returns the [NC,N,B] signs."""
+        packed = frames[0]["stacked"]["signs_packed"].cpu().numpy().view(np.uint32)
+        stage = self._desc_stage
+        self._desc_stage = []
+        return self._apply_fetched_signs(frames, packed, stage)
+
+    def match_stereo(self, estimator, frames, sid: int) -> int:
+        """Static-stereo initialisation across all overlapping camera pairs
+        (matchStereo, Frontend.cpp:1981-2150), waiting for its result: the
+        device program, then the host insertion. Returns the number of new
+        landmarks."""
+        pend = self._dispatch_static_stereo(estimator, frames, sid)
+        if pend is None:
+            return 0
+        fetched = _decode_stereo_flat(_stereo_flat(pend["out"]).cpu().numpy(),
+                                      len(pend["pairs"]), pend["N"])
+        return self._insert_static_stereo(estimator, frames, sid, pend, fetched)
 
     def dispatch_keyframe_extras(self, estimator, frames, sid: int):
         """Start a keyframe's device work without waiting: the all-pairs

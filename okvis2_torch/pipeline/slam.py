@@ -32,12 +32,22 @@ device (``_finish_one``). A keyframe's static stereo and descriptor fetch
 start at its finish and are consumed at the next one. Pose rewrites
 outside the solve flow are recorded as correction epochs
 (``_note_pose_correction``), so a solve dispatched before one is composed
-with it or skipped. ``finish()`` drains the loop.
+with it or skipped. ``finish()`` drains the loop and ends the solve
+worker.
 
-Not ported here: loop closure (``do_loop_closures``, ROADMAP A.12), CNN
-suppression (``cnn_params``, A.14), depth-aided initialisation
-(``add_depth_image``, A.15), map save/load (A.12), the CSV taps and the
-JAX bench's frame capture for its device-loop replay; each raises
+Loop closure (``do_loop_closures``, ``pipeline/full_graph.py``): each
+keyframe's tail queries place recognition and registers the keyframe. The
+synchronous loop closes a detected loop at once and solves the full graph
+inline; the pipelined loop closes it when the keyframe's deferred extras
+are consumed, queues the full-graph solve on the solve worker behind the
+realtime solves, and applies it at the next finished frame. Both record a
+non-rigid correction epoch, so realtime solves packed before it are
+skipped.
+
+Not ported here: CNN suppression (``cnn_params``, ROADMAP A.14),
+depth-aided initialisation (``add_depth_image``, A.15), map save/load and
+relocalisation against loaded maps (A.13), the CSV taps and the JAX
+bench's frame capture for its device-loop replay; each raises
 ``NotImplementedError`` where it has an entry point.
 """
 
@@ -54,6 +64,7 @@ from okvis2_torch.graph.estimator import Estimator, EstimatorConfig
 from okvis2_torch.imu.preintegration import ImuParameters
 from okvis2_torch.core import se3_np
 from okvis2_torch.pipeline.frontend_pipeline import Frontend, FrontendConfig
+from okvis2_torch.pipeline.full_graph import LoopClosureBackend, LoopClosureConfig
 from okvis2_torch.solver.packed_solve import MAX_APPEND_SETS
 from okvis2_torch.utils.timing import SwitchableTimer
 
@@ -73,8 +84,9 @@ class SlamSystem:
 
     ``cameras``: PinholeCamera per camera (the solve runs in their
     dtype); ``extrinsics``: Transformation per camera. ``ransac_sampler``
-    is the frontend's per-frame RANSAC hook (``Frontend``). Runs on
-    ``device`` (None: the CUDA card; raises without one)."""
+    is the frontend's per-frame RANSAC hook (``Frontend``),
+    ``loop_ransac_sampler`` loop verification's (``LoopClosureBackend``).
+    Runs on ``device`` (None: the CUDA card; raises without one)."""
 
     # _net_correction_since's "skip this solve" answer
     _CORR_SKIP = object()
@@ -92,10 +104,8 @@ class SlamSystem:
         pipelined: bool = False,
         device=None,
         ransac_sampler=None,
+        loop_ransac_sampler=None,
     ):
-        if do_loop_closures or loop_closure_config is not None:
-            raise NotImplementedError(
-                "okvis2_torch: loop closure and the full graph are not ported yet (ROADMAP A.12)")
         if cnn_params is not None:
             raise NotImplementedError(
                 "okvis2_torch: CNN suppression is not ported yet (ROADMAP A.14)")
@@ -116,6 +126,11 @@ class SlamSystem:
         self.frontend = Frontend(cameras, extrinsics, frontend_config, device=self.device,
                                  ransac_sampler=ransac_sampler)
         self.imu_params = imu_params
+        self.loop_backend: Optional[LoopClosureBackend] = None
+        if do_loop_closures:
+            self.loop_backend = LoopClosureBackend(
+                cameras, extrinsics, loop_closure_config or LoopClosureConfig(),
+                device=self.device, sampler=loop_ransac_sampler)
         self._imu_queue: Deque[Tuple[float, np.ndarray, np.ndarray]] = collections.deque()
         self._image_queue: Deque[Tuple[float, List[np.ndarray]]] = collections.deque()
         self._last_frame_t: Optional[float] = None
@@ -279,25 +294,46 @@ class SlamSystem:
 
     def _keyframe_tail(self, sid, frames, images):
         """Host keyframe work after the descriptor fetch: frontier
-        expansion (expandKeyframe, ViSlamBackend.cpp:357-406). Returns the
-        detected loop keyframe id: always None, loop closure is not
-        ported."""
-        self.estimator.expand_keyframe(sid)
-        return None
+        expansion (expandKeyframe, ViSlamBackend.cpp:357-406), then place
+        recognition (Frontend.cpp:674-899). Returns the detected loop
+        keyframe id, or None."""
+        est = self.estimator
+        est.expand_keyframe(sid)
+        loop_old_id = None
+        if self.loop_backend is not None:
+            with SwitchableTimer("2.06 place recognition"):
+                loop_old_id = self.loop_backend.detect_loop(est, sid, frames, self.frontend)
+                self.loop_backend.add_keyframe(est, sid, frames)
+            if self.loop_backend.has_components():
+                raise NotImplementedError(
+                    "okvis2_torch: relocalisation against loaded maps is not ported yet "
+                    "(ROADMAP A.13)")
+        return loop_old_id
 
     def _finish_deferred_keyframe(self):
         """Pipelined loop: consume the previous keyframe's deferred extras
-        (their copies have been crossing since its finish) and run the
-        keyframe tail."""
+        (their copies have been crossing since its finish), run the
+        keyframe tail and close a detected loop, queueing its full-graph
+        solve."""
         pk = self._pending_kf
         if pk is None:
             return
         self._pending_kf = None
-        if pk["sid"] not in self.estimator.states:
+        est = self.estimator
+        sid = pk["sid"]
+        if sid not in est.states:
             return  # the keyframe's state left the graph meanwhile
         with SwitchableTimer("2.05 keyframe extras finish"):
-            self.frontend.finish_keyframe_extras(self.estimator, pk)
-            self._keyframe_tail(pk["sid"], pk["frames"], pk["images"])
+            self.frontend.finish_keyframe_extras(est, pk)
+            loop_old_id = self._keyframe_tail(sid, pk["frames"], pk["images"])
+        if loop_old_id is not None:
+            with SwitchableTimer("2.08 loop closure"):
+                closed = self.loop_backend.close_loop(est, loop_old_id, sid, pk["frames"],
+                                                      self.frontend, async_solve=True)
+            if closed:
+                # the drift distribution moved the chain's poses one by
+                # one: solves packed before it are stale
+                self._note_pose_correction(None)
 
     def _finish_one(self, p):
         """Consume one in-flight frame's [solve | diag] output and run its
@@ -305,6 +341,12 @@ class SlamSystem:
         work, marginalisation, callbacks: the lagged half of the pipelined
         loop."""
         est = self.estimator
+        # a full-graph solve queued by the last loop closure lands first
+        if self.loop_backend is not None:
+            if self.loop_backend.apply_pending_full_graph(est) is not None:
+                # it moved states one by one (and newer ones rigidly):
+                # realtime solves in flight must not overwrite it
+                self._note_pose_correction(None)
         # the previous keyframe's deferred extras precede this frame's
         # bookkeeping (its staged descriptor sources must stay aligned)
         self._finish_deferred_keyframe()
@@ -327,11 +369,15 @@ class SlamSystem:
 
     def finish(self):
         """Drain the pipelined loop: finish every in-flight frame, then a
-        last keyframe's deferred extras. In the synchronous loop nothing is
-        in flight and, as in the JAX package's, the last frame's solve
-        stays pending and is not applied."""
+        last keyframe's deferred extras and a last full-graph solve; then
+        end the solve worker (the next solve starts another). In the
+        synchronous loop nothing is in flight and, as in the JAX package's,
+        the last frame's solve stays pending and is not applied."""
         self._consume_pending(max_left=0)
         self._finish_deferred_keyframe()
+        if self.loop_backend is not None:
+            self.loop_backend.apply_pending_full_graph(self.estimator)
+        self.estimator.close_solve_worker()
 
     def _process_frame_sync(self) -> bool:
         if not self._image_queue:
@@ -385,7 +431,12 @@ class SlamSystem:
                 with SwitchableTimer("2.05 keyframe extras"):
                     self.frontend.finish_keyframe_extras(
                         est, self.frontend.dispatch_keyframe_extras(est, frames, sid))
-                self._keyframe_tail(sid, frames, images)
+                loop_old_id = self._keyframe_tail(sid, frames, images)
+                if loop_old_id is not None:
+                    # before the window solve below, which then starts from
+                    # the corrected state; the full graph is solved inline
+                    with SwitchableTimer("2.08 loop closure"):
+                        self.loop_backend.close_loop(est, loop_old_id, sid, frames, self.frontend)
 
         # the realtime window solve; its result is applied in the next
         # frame. The pipelined loop dispatched its solve with the frame.

@@ -1,10 +1,11 @@
 """Run the VIO loop on the synthetic dataset.
 
 Port of ``okvis2_tpu/pipeline/synthetic_run.py`` (star dataset, default
-trajectory, synchronous or pipelined loop): renders stereo frames along the analytic
-trajectory, feeds images and exact IMU through ``SlamSystem`` and
-computes the aligned ATE against ground truth (the reference's validation
-analogue: okvis_app_synchronous on EuRoC, README.md:179-206).
+or circle trajectory, synchronous or pipelined loop, optional loop
+closure): renders stereo frames along the analytic trajectory, feeds
+images and exact IMU through ``SlamSystem`` and computes the aligned ATE
+against ground truth (the reference's validation analogue:
+okvis_app_synchronous on EuRoC, README.md:179-206).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from okvis2_torch.graph.estimator import EstimatorConfig
 from okvis2_torch.imu.preintegration import ImuParameters
 from okvis2_torch.pipeline.dataset import SyntheticDataset
 from okvis2_torch.pipeline.frontend_pipeline import FrontendConfig
+from okvis2_torch.pipeline.full_graph import LoopClosureConfig
 from okvis2_torch.pipeline.slam import SlamSystem
 from okvis2_torch.pipeline.trajectory import ate_rmse
 
@@ -55,10 +57,14 @@ def run_synthetic_vio(
     ransac_sampler=None,
     pipelined: bool = False,
     force_min_pending: int = 0,
+    trajectory: str = "default",
+    do_loop_closures: bool = False,
+    loop_closure_config: Optional[LoopClosureConfig] = None,
 ):
     """Returns a dict with the aligned ATE, the trajectories, per-frame
-    wall times and the system. The stereo radtan rig is built in
-    ``dtype``; ``ransac_sampler`` is the frontend's per-frame RANSAC hook.
+    wall times, the frames whose host work closed a loop ("lc_frames") and
+    the system. The stereo radtan rig is built in ``dtype``;
+    ``ransac_sampler`` is the frontend's per-frame RANSAC hook.
     ``force_min_pending`` keeps at least that many frames in flight in the
     pipelined loop (a test hook: it makes the multi-set device append
     happen on a fixed schedule, whatever the solves' timing). Runs on
@@ -70,15 +76,17 @@ def run_synthetic_vio(
         estimator_config = EstimatorConfig(
             window_slots=10, landmark_slots=384, obs_slots=2048, imu_seg_capacity=128)
     fe_cfg = FrontendConfig(detection=DetectionConfig(max_keypoints=max_keypoints))
-    slam = SlamSystem(cams, exts, imu_params, estimator_config, fe_cfg, pipelined=pipelined,
-                      device=dev, ransac_sampler=ransac_sampler)
+    slam = SlamSystem(cams, exts, imu_params, estimator_config, fe_cfg,
+                      do_loop_closures=do_loop_closures, loop_closure_config=loop_closure_config,
+                      pipelined=pipelined, device=dev, ransac_sampler=ransac_sampler)
     slam._force_min_pending = force_min_pending
     ds = SyntheticDataset(cams, exts, imu_params, duration=duration, frame_rate=frame_rate,
-                          n_stars=n_stars, device=dev)
+                          n_stars=n_stars, trajectory=trajectory, device=dev)
 
     gt_traj = []
     t_start = time.time()
     frame_times = []
+    lc_frames = []
     n = 0
     for ev in ds.stream():
         if ev[0] == "imu":
@@ -87,9 +95,12 @@ def run_synthetic_vio(
         _, t, images, pose_gt = ev
         gt_traj.append((t, pose_gt))
         slam.add_images(t, images)
+        lc0 = slam.loop_backend.num_loop_closures if slam.loop_backend else 0
         t0 = time.time()
         slam.process_frame()
         frame_times.append(time.time() - t0)
+        if slam.loop_backend is not None and slam.loop_backend.num_loop_closures > lc0:
+            lc_frames.append(n)
         n += 1
 
     est_traj = slam.trajectory()
@@ -103,6 +114,7 @@ def run_synthetic_vio(
         "gt_traj": gt_traj,
         "wall_time": time.time() - t_start,
         "frame_times": frame_times,
+        "lc_frames": lc_frames,
         "frames": n,
         "slam": slam,
     }

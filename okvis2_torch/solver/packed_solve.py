@@ -11,7 +11,8 @@ The pipelined loop's solve, ``solve_packed_fused`` (the JAX package's
 the match rows of every frame still in flight to the packed observations
 on the device (``_append_matches_all``): the host has not inserted them
 yet. It returns ``[solve output | frame diagnostics]``. ``SolveWorker``
-runs these solves in dispatch order on one thread and, on the card, on a
+runs these solves, and the full-graph solves that loop closure queues
+behind them, in dispatch order on one thread and, on the card, on a
 stream of its own, so the host goes on with the next frame meanwhile.
 
 The JAX package also packs the input into one flat float carrier (ints
@@ -187,14 +188,16 @@ class SolveWorker:
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="okvis2-solve")
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
-    def submit(self, fn, *args) -> Future:
+    def submit(self, fn, *args, timer: str = "3.2 fused solve (worker)") -> Future:
+        """Queue ``fn(*args)`` behind the jobs already submitted; its wall
+        time is recorded under ``timer``."""
         ready = None
         if self._stream is not None:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
-        return self._pool.submit(self._run, ready, fn, args)
+        return self._pool.submit(self._run, ready, fn, args, timer)
 
-    def _run(self, ready, fn, args) -> np.ndarray:
+    def _run(self, ready, fn, args, timer) -> np.ndarray:
         t0 = time.perf_counter()
         if self._stream is None:
             out = fn(*args).numpy()
@@ -207,7 +210,7 @@ class SolveWorker:
             self._stream.synchronize()
             out = host.numpy()
         if Timing.enabled:
-            Timing.add("3.2 fused solve (worker)", time.perf_counter() - t0)
+            Timing.add(timer, time.perf_counter() - t0)
         return out
 
     def close(self):

@@ -535,3 +535,120 @@ def test_slam_loop_card_matches_cpu(cuda, monkeypatch):
     # at 4 Hz keyframes come often: the marginalisation makes pose-graph
     # factors on the card (2 in this drive on the CPU)
     assert len(est.pose_graph_edges) >= 1
+
+
+def _loop_closure_drive(device, n_frames=9):
+    """tests/test_torch_closure_drive_sync.py's drive (one circle at 6 Hz
+    at 192x128, f = 120, its first 9 frames, place recognition with
+    exclude_recent=2 and no drift budget), float32 cameras on ``device``
+    (the Harris kernel takes float32), RANSAC hypotheses from a CPU
+    generator seeded with the frame or verification counter (the JAX draws
+    of the CPU test need JAX). Returns (closure frames, loop
+    edges, {sid: pose}, the system)."""
+    from okvis2_torch.frontend.detection import DetectionConfig
+    from okvis2_torch.graph.estimator import EstimatorConfig
+    from okvis2_torch.imu.preintegration import ImuParameters
+    from okvis2_torch.pipeline import frontend_pipeline as fp
+    from okvis2_torch.pipeline.dataset import SyntheticDataset
+    from okvis2_torch.pipeline.full_graph import LoopClosureConfig
+    from okvis2_torch.pipeline.slam import SlamSystem
+    from okvis2_torch.pipeline.synthetic_run import small_rig
+
+    def sampler_for(counter):
+        def sampler(mask, cam_idx, n_hyp, nc):
+            gen = torch.Generator().manual_seed(counter)
+            return fp.sample_hypotheses(gen, mask.cpu(), cam_idx.cpu(), n_hyp,
+                                        nc).to(mask.device)
+        return sampler
+
+    cams, exts = small_rig(192, 128, f=120.0, dtype=torch.float32, device=device)
+    imu = ImuParameters.create(g=9.81, device=device)
+    slam = SlamSystem(cams, exts, imu,
+                      EstimatorConfig(window_slots=8, landmark_slots=192, obs_slots=1024,
+                                      imu_seg_capacity=64, num_keyframes=2),
+                      fp.FrontendConfig(detection=DetectionConfig(max_keypoints=128)),
+                      do_loop_closures=True,
+                      loop_closure_config=LoopClosureConfig(exclude_recent=2,
+                                                            check_drift_budget=False),
+                      device=device, ransac_sampler=sampler_for, loop_ransac_sampler=sampler_for)
+    ds = SyntheticDataset(cams, exts, imu, n_stars=1500, duration=5.0, frame_rate=6.0,
+                          trajectory="circle", device=device)
+    poses, closures, n = {}, [], 0
+    slam.set_optimised_graph_callback(lambda t, sid, pose, tr: poses.__setitem__(sid, pose))
+    lb = slam.loop_backend
+    for ev in ds.stream():
+        if ev[0] == "imu":
+            slam.add_imu_measurement(ev[1], ev[2], ev[3])
+            continue
+        if n == n_frames:
+            break
+        slam.add_images(ev[1], ev[2])
+        n0 = lb.num_loop_closures
+        slam.process_frame()
+        closures += [n] * (lb.num_loop_closures - n0)
+        n += 1
+    slam.finish()
+    edges = [(e.id_i, e.id_j) for e in slam.estimator.pose_graph_edges if e.kind == "loop"]
+    return closures, edges, poses, slam
+
+
+def test_loop_closure_drive_on_card(cuda, monkeypatch):
+    """The synchronous closure drive on the card, run twice: the same
+    closures on the same frames with the same loop edges, and the same
+    poses (spread 0 m: the solves have no atomics). Then the first
+    closure's full-graph pack, in float64, solved on the card and on the
+    CPU gives poses within 1e-8 and the same LM iterations."""
+    from okvis2_torch.pipeline import full_graph as fg
+
+    packs, solve = [], fg._solve_full_graph
+
+    def solve_and_keep(prob, cameras, imu_params, config):
+        packs.append((prob.to(device="cpu"), config))
+        return solve(prob, cameras, imu_params, config)
+
+    monkeypatch.setattr(fg, "_solve_full_graph", solve_and_keep)
+    c1, e1, p1, slam = _loop_closure_drive(cuda)
+    c2, e2, p2, _ = _loop_closure_drive(cuda)
+    print(f"card runs: closures {c1} / {c2}, loop edges {e1} / {e2}, spread {_spread_poses(p1, p2)}")
+    assert c1 == c2 and len(c1) >= 1 and e1 == e2
+    assert _spread_poses(p1, p2) == 0.0
+    assert len(packs) == 2 * len(c1)
+    f64 = torch.float64
+    prob, config = packs[0]
+    prob = prob.to(dtype=f64)
+    cams, imu = slam.loop_backend.cameras, slam.estimator.imu_params
+    ref = solve(prob, tuple(c.to(device="cpu", dtype=f64) for c in cams),
+                imu.to(device="cpu", dtype=f64), config).numpy()
+    got = solve(prob.to(device=cuda), tuple(c.to(dtype=f64) for c in cams), imu.to(dtype=f64),
+                config).cpu().numpy()
+    S = prob.S
+    d_pose = float(np.abs(got[:S * 7] - ref[:S * 7]).max())
+    print(f"full-graph solve, float64, card vs CPU: poses within {d_pose:.3e}")
+    assert d_pose < 1e-8 and got[-1] == ref[-1]
+
+
+def _spread_poses(a, b):
+    assert a.keys() == b.keys()
+    return max(float(np.abs(a[s][:3] - b[s][:3]).max()) for s in a)
+
+
+def test_refine_pose_hessian_card_matches_cpu(cuda):
+    """The loop verification's pose refine on identical float64 inputs (40
+    noisy bearings in two cameras): the card against the CPU, pose within
+    1e-8, H and the sqrt information within 1e-8 of their largest entries."""
+    from okvis2_torch.frontend.pose_refine import refine_pose_hessian
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-2, 2, (40, 3)) + [0, 0, 6]
+    T_SC = np.array([[0, 0, 0, 0, 0, 0, 1.0], [0.11, 0, 0, 0, 0, 0, 1.0]])
+    cam = rng.integers(0, 2, 40)
+    rays = pts - T_SC[cam, :3] + rng.normal(0, 2e-3, (40, 3))
+    rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+    T_SW = np.array([0.05, -0.02, 0.01, 0.01, 0.02, -0.01, 1.0])
+    T_SW[3:] /= np.linalg.norm(T_SW[3:])
+    args = [torch.tensor(x) for x in (T_SW, pts, rays, cam, rng.random(40) > 0.2, T_SC)]
+    ref = [x.numpy() for x in refine_pose_hessian(*args)]
+    got = [x.cpu().numpy() for x in refine_pose_hessian(*(a.to(cuda) for a in args))]
+    assert np.abs(got[0] - ref[0]).max() < 1e-8
+    for a, b in zip(got[1:], ref[1:]):
+        assert np.abs(a - b).max() < 1e-8 * np.abs(b).max()

@@ -559,3 +559,28 @@ def test_deep_lag_against_the_synchronous_loop(port_runs):
           f"{e_d.n_obs_inserted}, own lag {e_n.n_obs_inserted}, synchronous {e_s.n_obs_inserted}")
     assert e_d.n_obs_inserted >= 0.9 * e_n.n_obs_inserted, (e_n.n_obs_inserted,
                                                            e_d.n_obs_inserted)
+
+
+def test_finish_ends_the_solve_worker():
+    """``finish()`` (through ``trajectory()``) ends the solve worker's
+    thread: a tiny pipelined drive leaves no ``okvis2-solve`` thread
+    behind, and a later solve starts a new worker that ``finish()`` ends
+    again (``trajectory()`` may call it more than once)."""
+    import threading
+
+    def solve_threads():
+        return {t for t in threading.enumerate() if t.name.startswith("okvis2-solve")}
+
+    before = solve_threads()  # a worker of a drive that raised may linger
+    res = tsr.run_synthetic_vio(duration=1.0, frame_rate=4.0, width=96, height=64,
+                                max_keypoints=32, n_stars=300, dtype=torch.float64, device="cpu",
+                                estimator_config=test_.EstimatorConfig(**EST), pipelined=True)
+    slam = res["slam"]
+    assert res["frames"] == 4 and slam.estimator._solve_worker is None
+    assert solve_threads() == before
+    worker = slam.estimator.solve_worker()
+    assert worker.submit(lambda: torch.ones(2)).result(timeout=60).tolist() == [1.0, 1.0]
+    assert len(solve_threads() - before) == 1
+    slam.finish()
+    slam.finish()
+    assert slam.estimator._solve_worker is None and solve_threads() == before

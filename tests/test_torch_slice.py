@@ -30,6 +30,7 @@ from okvis2_torch.frontend import matching as tmatch
 from okvis2_torch.pipeline import dataset as tds
 from okvis2_torch.graph import estimator as test_
 from okvis2_torch.pipeline import frontend_pipeline as tfp
+from okvis2_torch.pipeline import full_graph as tfg
 from okvis2_torch.pipeline import slam as tslam
 from okvis2_torch.pipeline import synthetic_run as tsr
 from okvis2_torch.solver import gauss_newton as tgn
@@ -174,6 +175,8 @@ DEVICE_NONE_ENTRY_POINTS = {
     "Estimator": lambda: test_.Estimator(*_rig_args()),
     "SlamSystem": lambda: tslam.SlamSystem(*_rig_args()),
     "SlamSystem pipelined": lambda: tslam.SlamSystem(*_rig_args(), pipelined=True),
+    "SlamSystem loop closure": lambda: tslam.SlamSystem(*_rig_args(), do_loop_closures=True),
+    "LoopClosureBackend": lambda: tfg.LoopClosureBackend(*_rig_args()[:2]),
     "run_synthetic_vio": lambda: tsr.run_synthetic_vio(duration=0.5),
 }
 
@@ -196,15 +199,12 @@ def _rig_args():
         device="cpu")
 
 
-@pytest.mark.parametrize("option", ["loop_closure_config", "do_loop_closures", "cnn_params",
-                                    "add_depth_image"])
+@pytest.mark.parametrize("option", ["cnn_params", "add_depth_image"])
 def test_unported_options_raise(option):
-    """Loop closure (and its config), CNN suppression and depth-aided
-    initialisation are not ported: asking for them raises, naming the
-    ROADMAP item, instead of being ignored."""
-    kw = {"loop_closure_config": {"loop_closure_config": object()},
-          "do_loop_closures": {"do_loop_closures": True},
-          "cnn_params": {"cnn_params": {}}, "add_depth_image": {}}[option]
+    """CNN suppression and depth-aided initialisation are not ported:
+    asking for them raises, naming the ROADMAP item, instead of being
+    ignored."""
+    kw = {"cnn_params": {"cnn_params": {}}, "add_depth_image": {}}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         s = tslam.SlamSystem(*_rig_args(), device="cpu", **kw)
         s.add_depth_image(0.0, np.zeros((24, 32)))

@@ -11,7 +11,7 @@ window and the wall time: the numbers that set phase 8's bars.
 
     env JAX_PLATFORMS=cpu python tools/e2e_reference_jax.py \
         [n_frames] [frame_rate] [trajectory] [num_keyframes] [pipelined] \
-        [force_min_pending] [obs_slots]
+        [force_min_pending] [obs_slots] [loop_closures] [exclude_recent]
 
 Defaults: 60 frames at 20 Hz on the default trajectory with 5 window
 keyframes, synchronous: the bench's system and frames (phase 8's first
@@ -26,6 +26,14 @@ observation slots (at 4096 the appended rows overflow). ``60 20 default 5
 1`` is the loop with its own lag, which on this CPU is mostly one frame.
 The pipelined loop's keyframes are read from its (lagged) callbacks; the
 JSON line also gives the frames in flight after each dispatch.
+
+``loop_closures`` 1 turns loop closure on, with
+``LoopClosureConfig(exclude_recent=...)`` (default 5, the config's own);
+the JSON line then gives the closures, the frames whose host work closed
+one, the loop edges, the keyframes that ran place recognition, the
+closures rejected by the drift budget and the last verification's
+outcome. Phase 10's drives: ``40 8 circle 2 0 0 4096 1 2`` (synchronous)
+and ``40 8 circle 2 1 1 4096 1 2`` (pipelined, one frame kept in flight).
 """
 
 import json
@@ -44,6 +52,8 @@ def main(argv):
     pipelined = bool(int(argv[5])) if len(argv) > 5 else False
     force_min_pending = int(argv[6]) if len(argv) > 6 else 0
     obs_slots = int(argv[7]) if len(argv) > 7 else 4096
+    loop_closures = bool(int(argv[8])) if len(argv) > 8 else False
+    exclude_recent = int(argv[9]) if len(argv) > 9 else 5
     import numpy as np
 
     from okvis2_tpu.cameras.distortion import RadialTangentialDistortion
@@ -54,6 +64,7 @@ def main(argv):
     from okvis2_tpu.imu.preintegration import ImuParameters
     from okvis2_tpu.pipeline.dataset import SyntheticDataset
     from okvis2_tpu.pipeline.frontend_pipeline import FrontendConfig
+    from okvis2_tpu.pipeline.full_graph import LoopClosureConfig
     from okvis2_tpu.pipeline.slam import SlamSystem
     from okvis2_tpu.pipeline.trajectory import ate_rmse
     import jax.numpy as jnp
@@ -73,13 +84,25 @@ def main(argv):
                               realtime_time_limit=1.0 / 200.0, num_keyframes=num_keyframes)
     fe_cfg = FrontendConfig(detection=DetectionConfig(max_keypoints=512),
                             map_match_capacity=1024)
-    slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=pipelined)
+    slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=pipelined,
+                      do_loop_closures=loop_closures,
+                      loop_closure_config=LoopClosureConfig(exclude_recent=exclude_recent))
+    lb = slam.loop_backend
+    n_queries = [0]
+    if lb is not None:
+        detect = lb.detect_loop
+
+        def counted(*a, **kw):
+            n_queries[0] += 1
+            return detect(*a, **kw)
+
+        lb.detect_loop = counted
     if force_min_pending:
         slam._force_min_pending = force_min_pending
     kf_sids = []
     slam.set_optimised_graph_callback(
         lambda t, sid, pose, tr: kf_sids.append(sid) if tr.is_keyframe else None)
-    gt, max_window, in_flight = [], 0, []
+    gt, max_window, in_flight, lc_frames = [], 0, [], []
     for ev in ds.stream():
         if ev[0] == "imu":
             slam.add_imu_measurement(ev[1], ev[2], ev[3])
@@ -89,7 +112,10 @@ def main(argv):
         slam.add_images(t, [(np.clip(im, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
                             for im in images])
         t0 = time.perf_counter()
+        lc0 = lb.num_loop_closures if lb is not None else 0
         slam.process_frame()
+        if lb is not None and lb.num_loop_closures > lc0:
+            lc_frames.append(len(gt) - 1)
         in_flight.append(len(slam._pending_frames))
         est = slam.estimator
         max_window = max(max_window, len(est.window))
@@ -102,8 +128,19 @@ def main(argv):
               f"{len(est.window)}, edges {len(est.pose_graph_edges)}, error {err:.4f} m",
               flush=True)
     est = slam.estimator
+    lc_end = lb.num_loop_closures if lb is not None else 0
     traj = slam.trajectory()  # drains the pipelined loop first
+    if lb is not None and lb.num_loop_closures > lc_end:
+        lc_frames.append("finish")
     kf_frames = [est.state_order.index(s) for s in kf_sids]
+    loop = {} if lb is None else {
+        "exclude_recent": exclude_recent, "loop_closures": lb.num_loop_closures,
+        "loop_closure_frames": lc_frames,
+        "loop_edges": [[e.id_i, e.id_j] for e in est.pose_graph_edges if e.kind == "loop"],
+        "place_recognition_queries": n_queries[0],
+        "rejected_by_budget": lb.num_rejected_by_budget,
+        "last_verify_info": lb.last_verify_info,
+    }
     print(json.dumps({
         "frames": len(gt), "frame_rate": rate, "trajectory": trajectory,
         "num_keyframes": num_keyframes, "pipelined": pipelined,
@@ -113,7 +150,7 @@ def main(argv):
         "keyframes": len(kf_frames), "keyframe_frames": kf_frames, "landmarks": len(est.landmarks),
         "pose_graph_edges": len(est.pose_graph_edges),
         "edges": [[e.id_i, e.id_j] for e in est.pose_graph_edges], "max_window": max_window,
-        "wall_s": time.perf_counter() - t_start,
+        **loop, "wall_s": time.perf_counter() - t_start,
     }))
 
 
