@@ -205,6 +205,52 @@ LOOP_DRIVES = {
 # (two runs), so the float32 pair is logged, not held
 QUEUED_FG_TOL_M, QUEUED_FG_TOL_HP = 1e-6, 1e-6
 QUEUED_FG_F64_ITERATIONS = 5
+# phase 11: multi-session, in the app's order (app_synchronous.py:115-141)
+# on phase 10's synchronous session: finish(), the final BA at its defaults
+# (30 LM iterations, 8192 landmark and 65536 observation slots, states from
+# 32), save_map; then a second session that loads the map and joins the
+# same circle at t = 2.5 s (frames 20-39), 3 m from where it starts its own
+# frame, in each loop. The JAX package on the same frames
+# (tools/e2e_reference_jax.py 40 8 circle 2 0 0 4096 1 2 1 2.5
+# sync,pipelined 1; CPU, float32):
+# - final BA: aligned ATE 4.765 mm (online 4.607 mm), 178 observations
+#   restored, 7 states, 924 landmarks, reprojection RMS 9.730 px. The RMS
+#   bar of tests/test_final_ba.py (3 px, on another drive) does not hold
+#   for the reference on this session, so the port is held at 1.5x the
+#   JAX RMS (ROADMAP C);
+# - second session, synchronous: 1848 landmarks loaded, 774 with
+#   descriptors; one relocalisation, on keyframe 18 (2.992 m, 0.037 deg),
+#   its pose then 11.578 mm from the truth (no alignment: the map's frame
+#   is the first session's); the trajectory 14.438 mm RMS from it on;
+# - second session, pipelined (one frame kept in flight, the card's
+#   schedule): relocalisations on keyframes 7 (3.046 m, 4.430 deg; then
+#   26.157 mm from the truth) and 19 (at finish()): after the first the
+#   loop drifts off again by metres, as the JAX pipelined loop diverges on
+#   this circle at this lag without a map (ROADMAP C), so the drive holds
+#   the first relocalisation and logs the rest. Its keyframe is held
+#   within 2 frames of the JAX run's: the map varies from run to run (the
+#   full-graph solve and the final BA reduce with index_add_ in float32,
+#   ~1e-5 m) and this diverging loop carries that into its decisions; two
+#   card runs of the same tree relocalised first on keyframes 7 and 6.
+# The pose bars: 1.5x the JAX error plus 5 mm (phase 8's rule).
+MULTI_SESSION = dict(
+    session="slam loop closure", start_s=2.5, jax_fba_ate_m=0.004765339874524123,
+    jax_fba_rms_px=9.730219841003418, jax_fba_restored=178, jax_loop_edges=[[0, 37]],
+    drives={
+        "multi-session": dict(pipelined=False, jax_reloc_keyframes=[18], keyframe_slack=0,
+                              jax_first_error_m=0.01157757889056699,
+                              jax_rms_from_first_m=0.014438015471071016),
+        "multi-session pipelined": dict(pipelined=True, jax_reloc_keyframes=[7, 19],
+                                        keyframe_slack=2,
+                                        jax_first_error_m=0.02615715336374289,
+                                        jax_rms_from_first_m=None),
+    })
+# the final BA's pack solved again in float64 on the card and on the CPU
+# from identical inputs, at QUEUED_FG_F64_ITERATIONS: poses within 1e-6 m,
+# landmarks as unit homogeneous vectors within 1e-6 (phase 10's rule; the
+# float32 solve at these capacities reduces with index_add_, whose order
+# varies run to run)
+FBA_F64_TOL_M, FBA_F64_TOL_HP = 1e-6, 1e-6
 
 
 def log(msg):
@@ -730,6 +776,7 @@ def slam_drive(name, d, pipelined):
     from okvis2_torch.pipeline.slam import SlamSystem
 
     n_frames, rate, tag = d["frames"], d["rate"], f"[{name}]"
+    start = d.get("start_s", 0.0)  # a later session joins the stream here
     cams, T_SC, imu = tracking_rig(DEVICE)
     exts = [Transformation(r=torch.tensor(T[:3], dtype=torch.float32, device=DEVICE),
                            q=torch.tensor(T[3:], dtype=torch.float32, device=DEVICE))
@@ -738,16 +785,18 @@ def slam_drive(name, d, pipelined):
     # one frame more than the measured run: the profiled frame (a circle
     # drive renders exactly its frames: its period is the duration)
     extra = 1 if d["trajectory"] == "default" else 0
-    ds = SyntheticDataset(cams, exts, imu, n_stars=2500, duration=(n_frames + extra) / rate,
+    n_render = d.get("render_frames", n_frames)
+    ds = SyntheticDataset(cams, exts, imu, n_stars=2500, duration=(n_render + extra) / rate,
                           frame_rate=rate, imu_rate=200.0, seed=0, trajectory=d["trajectory"],
                           device=DEVICE)
     events = [ev if ev[0] == "imu" else
               (ev[0], ev[1], [(np.clip(im, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
                               for im in ev[2]], ev[3])
-              for ev in ds.stream()]
+              for ev in ds.stream() if ev[1] >= start - 1e-9]
     n_rendered = sum(ev[0] == "images" for ev in events)
     log(f"{tag} rendered {n_rendered} {W}x{H} stereo frames of 2500 stars on the "
-        f"{d['trajectory']} trajectory at {rate:g} Hz in {time.perf_counter() - t0:.2f} s")
+        f"{d['trajectory']} trajectory at {rate:g} Hz from t = {start:g} s in "
+        f"{time.perf_counter() - t0:.2f} s")
     assert n_rendered == n_frames + extra, n_rendered
 
     est_cfg = est_mod.EstimatorConfig(window_slots=12, landmark_slots=512,
@@ -798,7 +847,7 @@ def slam_drive(name, d, pipelined):
 
     return SimpleNamespace(slam=slam, est=est, est_cfg=est_cfg, fe_cfg=fe_cfg,
                            feed_frame=feed_frame, solves=solves, factors=factors,
-                           restore=restore, tag=tag)
+                           restore=restore, tag=tag, cams=cams, imu=imu)
 
 
 def check_drive(name, d, run, gt, windows, kf, launches):
@@ -1106,11 +1155,13 @@ def queued_against_inline(tag, lb, fg_log):
 
 def profile_kernels(fn):
     """The number of device kernels ``fn`` launches (torch.profiler), or
-    None when the profiler sees no device kernels."""
+    None when the profiler sees no device kernels. Only device activity is
+    traced: tracing every host op as well costs ~1.5 ms per device kernel,
+    most of it summing the trace (tools/profiler_overhead.py)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
@@ -1119,7 +1170,8 @@ def profile_kernels(fn):
 
 def phase_loop_sync(card, name, d):
     """Phase 10, the synchronous drive: phase 8's loop with loop closure;
-    returns the kernels' launch counts over its frames."""
+    returns the kernels' launch counts over its frames, and the session
+    (run, ground truth, ATE) that phase 11 takes on."""
     from okvis2_torch.ops.harris_cuda import harris_nms_cuda
     from okvis2_torch.utils.timing import Timing
 
@@ -1158,7 +1210,7 @@ def phase_loop_sync(card, name, d):
     assert closures == d["jax_closure_frames"], closures
     assert loop_edges == d["jax_loop_edges"], loop_edges
     assert len(fg_log) == len(closures), fg_log
-    check_drive(name, d, run, gt, windows, kf, launches)
+    ate = check_drive(name, d, run, gt, windows, kf, launches)
 
     steady = [s for i, s in enumerate(frame_s) if i >= d["warmup"] and i not in closures]
     log(f"{tag} process_frame {len(steady) / sum(steady):.3f} frames/s over frames "
@@ -1172,7 +1224,8 @@ def phase_loop_sync(card, name, d):
         log(f"{tag} closure frame {i}: {frame_s[i] * 1e3 - fg['extra_ms']:.3f} ms (the "
             f"comparison's extra {fg['extra_ms']:.3f} ms left out), of it "
             + json.dumps(split_of[i]))
-    return {"harris_nms": launches}
+    lb.optimise_full_graph = type(lb).optimise_full_graph.__get__(lb)  # the comparison ends
+    return {"harris_nms": launches}, (run, gt, ate)
 
 
 def phase_loop_pipelined(card, name, d):
@@ -1234,6 +1287,213 @@ def phase_loop_pipelined(card, name, d):
     return {"harris_nms": launches}
 
 
+def phase_multi_session(card, run, gt, online_ate):
+    """Phase 11 on phase 10's synchronous session (``run``, its ground
+    truth and ATE): finish(), the final BA with its checks and its pack
+    solved again in float64 on the card and on the CPU, save_map and the
+    file read back, then the second sessions (MULTI_SESSION["drives"]).
+    Returns the kernels' launch counts over each second session."""
+    import tempfile
+
+    from okvis2_torch.pipeline import final_ba as fba
+    from okvis2_torch.pipeline.component_io import load_component
+    from okvis2_torch.pipeline.trajectory import ate_rmse
+
+    ms, tag = MULTI_SESSION, "[final BA]"
+    slam, est = run.slam, run.est
+    slam.finish()
+    captured, solve = [], fba.solve_window
+
+    def solve_and_keep(prob, cameras, imu_params, config):
+        out = solve(prob, cameras, imu_params, config)
+        captured.append((prob, out[1]))
+        return out
+
+    fba.solve_window = solve_and_keep
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = slam.do_final_ba()
+        torch.cuda.synchronize()
+        fba_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fba.solve_window = solve
+    prob, stats = captured[0]
+    ate = ate_rmse(est.trajectory(), gt, align=True)
+    loop_edges = [[e.id_i, e.id_j] for e in est.pose_graph_edges if e.kind == "loop"]
+    bar_ate = min(1.5 * ms["jax_fba_ate_m"] + 0.005, 1.5 * online_ate + 0.001)
+    bar_rms = 1.5 * ms["jax_fba_rms_px"]
+    rms = info["reproj_rms_px"]
+    # the device kernels of one more solve of the same pack (its time is not
+    # used), and the spread of its reprojection errors
+    again = []
+    n_kernels = profile_kernels(lambda: again.append(solve(
+        prob, est.cameras, est.imu_params, fba.SolverConfig(max_iterations=30))[0]))
+    r, m = fba._reproj_residuals(again[0], est.cameras)
+    solved = again[0]
+    err_px = (torch.linalg.norm(r, dim=-1) / solved.obs_sqrt_info)[m].double().cpu().numpy()
+    log(f"{tag} {fba_ms:.3f} ms, {stats['iterations']} LM iterations, capacities S/L/O/R "
+        f"{prob.S}/{prob.L}/{prob.O}/{prob.rel_mask.shape[0]} (used {info['states']}/"
+        f"{info['landmarks']}/{int(prob.obs_mask.sum())}/{int(prob.rel_mask.sum())}), "
+        f"{n_kernels} device kernels per solve, {info['restored_observations']} observations "
+        f"restored (JAX {ms['jax_fba_restored']}), reprojection RMS {rms:.3f} px (bar "
+        f"{bar_rms:.3f}; the JAX package {ms['jax_fba_rms_px']:.3f}; median "
+        f"{np.median(err_px):.3f}, p90 {np.percentile(err_px, 90):.3f}, max {err_px.max():.3f}, "
+        f"{np.mean(err_px > 3.0):.4f} of the observations above 3 px), ATE {ate:.6f} m (bar "
+        f"{bar_ate:.6f}; online {online_ate:.6f}, the JAX final BA {ms['jax_fba_ate_m']:.6f}), "
+        f"loop edges {loop_edges} ({card})")
+    assert info["restored_observations"] > 0, info["restored_observations"]
+    assert loop_edges == ms["jax_loop_edges"], loop_edges
+    assert info["states"] > 4 and info["landmarks"] > SLAM_MIN_LANDMARKS, info
+    assert rms < bar_rms, f"final BA: reprojection RMS {rms:.3f} px against {bar_rms:.3f}"
+    for k in ("bias_gyro_mean", "bias_gyro_std", "bias_accel_mean", "bias_accel_std",
+              "reproj_heatmaps"):
+        assert np.isfinite(info[k]).all(), k
+    assert info["reproj_heatmaps"].shape[0] == len(est.cameras), info["reproj_heatmaps"].shape
+    assert ate < bar_ate, f"final BA: ATE {ate:.6f} m against {bar_ate:.6f} m"
+    # the same pack in float64, card against CPU on identical inputs
+    f64, cfg64 = torch.float64, fba.SolverConfig(max_iterations=QUEUED_FG_F64_ITERATIONS)
+    p64 = prob.to(device="cpu", dtype=f64)
+    out = {}
+    for dev in ("cpu", DEVICE):
+        t0 = time.perf_counter()
+        sol, st = solve(p64.to(device=dev), tuple(c.to(device=dev, dtype=f64) for c in est.cameras),
+                        est.imu_params.to(device=dev, dtype=f64), cfg64)
+        out[dev] = (sol.pose.cpu().numpy(), sol.landmarks.cpu().numpy(), st["iterations"],
+                    (time.perf_counter() - t0) * 1e3)
+    unit = lambda hp: hp / np.linalg.norm(hp, axis=-1, keepdims=True)  # noqa: E731
+    n_s, n_l = info["states"], info["landmarks"]
+    d_pose = float(np.abs(out[DEVICE][0][:n_s, :3] - out["cpu"][0][:n_s, :3]).max())
+    d_hp = float(np.abs(unit(out[DEVICE][1][:n_l]) - unit(out["cpu"][1][:n_l])).max())
+    log(f"{tag} the pack in float64 at {QUEUED_FG_F64_ITERATIONS} iterations, card against CPU: "
+        f"poses within {d_pose:.3e} m, landmarks within {d_hp:.3e} (bars {FBA_F64_TOL_M:g}, "
+        f"{FBA_F64_TOL_HP:g}); iterations {out[DEVICE][2]} / {out['cpu'][2]}; card "
+        f"{out[DEVICE][3]:.3f} ms, CPU {out['cpu'][3]:.3f} ms")
+    assert d_pose < FBA_F64_TOL_M and d_hp < FBA_F64_TOL_HP, (d_pose, d_hp)
+    assert out[DEVICE][2] == out["cpu"][2], (out[DEVICE][2], out["cpu"][2])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/session1.map"
+        t0 = time.perf_counter()
+        slam.save_map(path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        data = load_component(path)
+        d_pose = max(float(np.abs(data["states"][s]["pose"] - est.states[s].pose).max())
+                     for s in est.state_order)
+        d_lm = max(float(np.abs(data["landmarks"][lid] - lm.hp_W).max())
+                   for lid, lm in est.landmarks.items())
+        # written to 9 decimals: within half a unit of the 9th, and the parse
+        assert data["states"].keys() == set(est.state_order) and d_pose < 1e-9, d_pose
+        assert data["landmarks"].keys() == est.landmarks.keys() and d_lm < 1e-9, d_lm
+        words = {o["lid"]: o["descriptor"] for o in data["observations"] if "descriptor" in o}
+        for lid, w in words.items():
+            bits = (np.asarray(slam.frontend.lm_descriptors[lid]) > 0).astype(np.uint32)
+            packed = (bits.reshape(-1, 32) << np.arange(32, dtype=np.uint32)).sum(
+                axis=-1, dtype=np.uint32)
+            assert np.array_equal(w, packed), lid
+        log(f"[save map] {len(data['states'])} states, {len(data['landmarks'])} landmarks, "
+            f"{len(words)} with descriptors, {len(data['observations'])} observations, "
+            f"{len(data['rel_edges'])} relative edges in {save_ms:.3f} ms; read back: poses "
+            f"within {d_pose:.1e}, landmarks within {d_lm:.1e} (the file's 9 decimals), "
+            f"descriptors bit for bit")
+        return {name: second_session(card, name, d, path, data)
+                for name, d in ms["drives"].items()}
+
+
+def second_session(card, name, dd, path, data):
+    """Phase 11, one second session: load the map, drive the circle from
+    MULTI_SESSION["start_s"] on, check the relocalisation."""
+    from okvis2_torch.core import se3_np
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.utils.timing import Timing
+
+    d = dict(LOOP_DRIVES[MULTI_SESSION["session"]], frames=20, render_frames=40,
+             start_s=MULTI_SESSION["start_s"])
+    run = slam_drive(name, d, pipelined=dd["pipelined"])
+    slam, est, tag = run.slam, run.est, run.tag
+    n_loaded = slam.load_map(path)
+    table = slam.frontend.table
+    n_desc = len(slam.frontend.lm_descriptors)
+    file_lid = list(data["landmarks"])  # loaded in the file's order, ids from 0
+    words = {o["lid"]: o["descriptor"] for o in data["observations"] if "descriptor" in o}
+    signs = table.signs[:, 0].cpu().numpy()
+    for lid, s in table.slot_of.items():
+        bits = (words[file_lid[lid]][:, None] >> np.arange(32, dtype=np.uint32)) & 1
+        assert np.array_equal(signs[s] > 0, bits.reshape(-1) > 0), lid
+    assert len(table.slot_of) >= n_desc == len(words), (len(table.slot_of), n_desc, len(words))
+    assert slam.loop_backend.has_components()
+    log(f"{tag} loaded {n_loaded} landmarks, {n_desc} with descriptors, in {len(table.slot_of)} "
+        f"table slots whose device signs equal the file's bits")
+    relocs, apply_reloc, gt = [], slam._apply_relocalisation, []
+
+    def recorded(est_, sid, frames, v):
+        before = est_.states[sid].pose.copy()
+        apply_reloc(est_, sid, frames, v)
+        after = est_.states[sid].pose
+        dq = se3_np.quat_mul(se3_np.quat_conj(before[3:7]), after[3:7])
+        k = est_.state_order.index(sid)
+        relocs.append({"keyframe": k, "d_pos_m": float(np.linalg.norm(after[:3] - before[:3])),
+                       "d_rot_deg": float(np.degrees(np.linalg.norm(se3_np.log_so3(dq)))),
+                       "error_after_m": float(np.linalg.norm(after[:3] - gt[k][1][:3])),
+                       "inliers": int(v["num_inliers"]), "frame": len(gt) - 1})
+
+    slam._apply_relocalisation = recorded
+    kf_of = {}
+    slam.set_optimised_graph_callback(
+        lambda t, sid, pose, tr: kf_of.__setitem__(sid, bool(tr.is_keyframe)))
+    frame_s, in_flight = [], []
+    Timing.reset()
+    try:
+        torch.cuda.synchronize()
+        harris_nms_cuda.launches = 0
+        for _ in range(d["frames"]):
+            gt.append(run.feed_frame())
+            ta = time.perf_counter()
+            slam.process_frame()
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - ta)
+            in_flight.append(len(slam._pending_frames))
+        slam.finish()
+        torch.cuda.synchronize()
+        launches = harris_nms_cuda.launches
+    finally:
+        run.restore()
+    traj = est.trajectory()
+    err = [float(np.linalg.norm(p[:3] - g[1][:3])) for (_, p), g in zip(traj, gt)]
+    assert len(traj) == d["frames"] and np.isfinite(err).all(), len(traj)
+    keyframes = [r["keyframe"] for r in relocs]
+    assert relocs, f"{name}: no relocalisation (last verification {slam.loop_backend.last_verify_info!r})"
+    first = relocs[0]
+    bar_first = 1.5 * dd["jax_first_error_m"] + 0.005
+    rms = float(np.sqrt(np.mean(np.square(err[first["keyframe"]:]))))
+    reloc = Timing.get("2.09 relocalisation")
+    lag = {str(k): in_flight.count(k) for k in sorted(set(in_flight))}
+    rec = json.dumps([{k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()}
+                      for r in relocs])
+    log(f"{tag} relocalised on keyframes {keyframes} (the JAX run: {dd['jax_reloc_keyframes']}), "
+        f"in the process_frame of frames {[r['frame'] for r in relocs]}: {rec}; the relocalised "
+        f"pose {first['error_after_m']:.6f} m from the truth without alignment "
+        f"(bar {bar_first:.6f}; JAX {dd['jax_first_error_m']:.6f}); the trajectory from it on "
+        f"{rms:.6f} m RMS, last frame {err[-1]:.6f} m; frames in flight {json.dumps(lag)}; "
+        f"'2.09 relocalisation' {reloc.n if reloc else 0} calls, "
+        f"{(reloc.total / max(reloc.n, 1) * 1e3) if reloc else 0.0:.3f} ms each; keyframes at "
+        f"frames {[est.state_order.index(s) for s, k in kf_of.items() if k]}; landmarks "
+        f"{len(est.landmarks)}; harris_nms launches {launches}")
+    log(f"{tag} process_frame of the relocalising frame {first['frame']}: "
+        f"{frame_s[first['frame']] * 1e3:.3f} ms (median of the drive "
+        f"{statistics.median(frame_s) * 1e3:.3f} ms), correction {first['d_pos_m']:.6f} m, "
+        f"{first['d_rot_deg']:.4f} deg ({card})")
+    assert abs(keyframes[0] - dd["jax_reloc_keyframes"][0]) <= dd["keyframe_slack"], keyframes
+    assert first["error_after_m"] < bar_first, first
+    if dd["jax_rms_from_first_m"] is not None:
+        bar_rms = 1.5 * dd["jax_rms_from_first_m"] + 0.005
+        assert rms < bar_rms, f"{name}: {rms:.6f} m RMS from the relocalisation on, bar {bar_rms}"
+        assert keyframes == dd["jax_reloc_keyframes"], keyframes
+    n_oct = run.fe_cfg.detection.octaves
+    assert launches == d["frames"] * n_oct, launches
+    return {"harris_nms": launches}
+
+
 def check_two_pose(tag, factors):
     """Each two-pose factor the card made, against the same function on the
     CPU on the same inputs."""
@@ -1280,12 +1540,14 @@ def time_stages(stages):
 
 
 def profile_frame(frame):
-    """One frame under torch.profiler: device kernels launched,
-    device-busy time against the frame's wall time, the top kernels."""
+    """One frame under torch.profiler, device activity only (see
+    ``profile_kernels``; tracing host ops also stretched the frame's wall
+    time, and so its idle share): device kernels launched, device-busy
+    time against the frame's wall time, the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         frame()
         torch.cuda.synchronize()
@@ -1330,9 +1592,15 @@ def main():
     launches_slam.update({name: phase_pipelined(card, name, d)
                           for name, d in PIPELINED_DRIVES.items()})
     done("9 slam pipelined")
-    launches_slam.update({name: (phase_loop_pipelined if d["pipelined"] else phase_loop_sync)(
-        card, name, d) for name, d in LOOP_DRIVES.items()})
+    sessions = {}
+    for name, d in LOOP_DRIVES.items():
+        if d["pipelined"]:
+            launches_slam[name] = phase_loop_pipelined(card, name, d)
+        else:
+            launches_slam[name], sessions[name] = phase_loop_sync(card, name, d)
     done("10 slam loop closure")
+    launches_slam.update(phase_multi_session(card, *sessions[MULTI_SESSION["session"]]))
+    done("11 multi-session")
     for k in kernels:
         by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
         by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})

@@ -559,6 +559,31 @@ class DeviceLandmarkTable:
             self.valid = torch.zeros((self.capacity, self.n_desc), dtype=torch.bool,
                                      device=self.device)
 
+    def load_host_descriptors(self, lid_signs: Dict[int, np.ndarray], dtype=torch.float32):
+        """Bulk-insert host descriptors (a map load: Frontend::loadComponent,
+        Frontend.cpp:180-218): a slot per landmark, its first ring entry set
+        and the ring at 1, then the rows written to the device table in one
+        upload. Staged updates must be flushed first: they may index slots
+        this load reassigns."""
+        if not lid_signs:
+            return
+        B = len(next(iter(lid_signs.values())))
+        self.ensure(B, dtype)
+        rows: Dict[int, np.ndarray] = {}  # slot -> signs; a reused slot keeps the last
+        for lid, sg in lid_signs.items():
+            s = self.alloc(lid)
+            if s is None:
+                break
+            rows[s] = sg
+            self.ring_next[s] = 1
+        slots = torch.as_tensor(np.fromiter(rows, np.int64, len(rows)), device=self.device)
+        signs = torch.as_tensor(np.stack(list(rows.values())), device=self.device,
+                                dtype=self.signs.dtype)
+        ring0 = torch.zeros_like(slots)
+        # new tensors, as the frame program's table updates make
+        self.signs = self.signs.index_put((slots, ring0), signs)
+        self.valid = self.valid.index_put((slots, ring0), torch.ones_like(slots, dtype=torch.bool))
+
     def alloc(self, lid: int) -> Optional[int]:
         s = self.slot_of.get(lid)
         if s is not None:
@@ -603,6 +628,9 @@ class DeviceLandmarkTable:
         ring = int(self.ring_next[s])
         self.ring_next[s] = (ring + 1) % self.n_desc
         self._upd.append((s, ring, cam, kp))
+
+    def staged_count(self) -> int:
+        return len(self._upd) + len(self._clear)
 
     def drain(self, U: int) -> np.ndarray:
         """Consume up to U staged updates + clears into one flat [4U] int32

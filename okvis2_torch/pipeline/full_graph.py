@@ -36,11 +36,13 @@ RANSAC draws come from a ``torch.Generator`` seeded 7; ``sampler(n)``, when
 given, may return the n-th verification's hypothesis sampler (as
 ``Frontend``'s ``ransac_sampler``).
 
+Multi-session: ``add_component`` registers a loaded map (``SlamSystem.
+load_map``) with a place-recognition database of its own, and
+``relocalise`` verifies a keyframe against it without a pose prior.
+
 Left out: ``prewarm_shapes_async``, ``predicted_full_graph_shape`` and
 ``prewarm_predicted``, which compile the JAX package's XLA programs ahead
-of time (eager PyTorch has nothing to compile), and the loaded-map
-relocalisation (``add_component`` / ``relocalise``, ROADMAP A.13), so
-``has_components`` is always False.
+of time (eager PyTorch has nothing to compile).
 """
 
 from __future__ import annotations
@@ -402,10 +404,67 @@ class LoopClosureBackend:
         return {"T_WS7": se3_np.inverse7(T_SW7_r), "H": H, "sqrt_info": sqrt_info,
                 "pairs": pairs, "num_inliers": n_in, "margin": verify_margin}
 
+    # ------------------------------------------------------------------
+    # multi-session relocalisation (one database per loaded component)
+    # ------------------------------------------------------------------
     def has_components(self) -> bool:
-        """Whether loaded maps are registered for relocalisation (none: their
-        loading is ROADMAP A.13)."""
+        """Whether loaded maps are registered for relocalisation
+        (``add_component``, called by ``SlamSystem.load_map``)."""
         return bool(self._components)
+
+    def add_component(self, kf_docs: Dict[int, List[int]], lm_signs: Dict[int, np.ndarray]):
+        """Register a loaded map for relocalisation: ``kf_docs`` maps each of
+        its keyframe ids to the (session) ids of the landmarks it observed,
+        ``lm_signs`` a landmark id to its descriptor signs. Each component
+        gets a database of its own (Frontend.cpp:180-218, queried at
+        :674-749), so a new session relocalises from an unknown pose, where
+        projection-gated matching needs a roughly right prediction. Without
+        a vocabulary, one is trained on the component's descriptors first."""
+        docs = {kid: [lid for lid in lids if lid in lm_signs] for kid, lids in kf_docs.items()}
+        docs = {k: v for k, v in docs.items() if len(v) >= 3}
+        if not docs:
+            return
+        if self.voc is None:
+            # a previous session's descriptors sample the scene far better
+            # than this session's first keyframes, and relocalisation must
+            # work from its first frame
+            train = np.stack([lm_signs[lid] for lids in docs.values() for lid in lids])
+            self.voc = BinaryVocabulary.train(train,
+                                              n_words=min(self.cfg.vocabulary_size, len(train)))
+            self.db = PlaceRecognitionDatabase(self.voc)
+            for kid, d in self._kf_data.items():
+                B = d["signs"].shape[-1]
+                self.db.add(kid, d["signs"].reshape(-1, B), d["mask"].reshape(-1))
+            self._train_buffer = []
+        cdb = PlaceRecognitionDatabase(self.voc)
+        for kid, lids in docs.items():
+            cdb.add(kid, np.stack([lm_signs[lid] for lid in lids]))
+        self._components.append({"db": cdb, "docs": docs, "signs": lm_signs})
+
+    def relocalise(self, estimator: Estimator, sid: int, frames):
+        """Query every loaded component's database with keyframe ``sid``
+        (all cameras) and verify the best three answers geometrically,
+        without a pose prior. Returns the first verified result (as
+        ``_verify``'s: T_WS7 in the map's frame, pairs, ...) or None."""
+        if not self._components:
+            return None
+        signs, mask, _xy = self._stack_frames(frames)
+        B = signs.shape[-1]
+        q_signs, q_mask = signs.reshape(-1, B), mask.reshape(-1)
+        for comp in self._components:
+            results = comp["db"].query(q_signs, q_mask, min_score=self.cfg.min_score)
+            self.last_query_results = results[:5]
+            for kid, _score in results[:3]:
+                lids = [lid for lid in comp["docs"][kid] if lid in estimator.landmarks]
+                if len(lids) < self.cfg.min_inliers:
+                    continue
+                lm_entries = [(lid, comp["signs"][lid]) for lid in lids]
+                pts_of = {lid: estimator.landmarks[lid].hp_W[:3]
+                          / max(estimator.landmarks[lid].hp_W[3], 1e-12) for lid in lids}
+                v = self._verify_entries(lm_entries, pts_of, frames)
+                if v is not None:
+                    return v
+        return None
 
     # ------------------------------------------------------------------
     def _loop_chain(self, estimator: Estimator, old_id: int, sid: int):

@@ -44,11 +44,20 @@ realtime solves, and applies it at the next finished frame. Both record a
 non-rigid correction epoch, so realtime solves packed before it are
 skipped.
 
-Not ported here: CNN suppression (``cnn_params``, ROADMAP A.14),
-depth-aided initialisation (``add_depth_image``, A.15), map save/load and
-relocalisation against loaded maps (A.13), the CSV taps and the JAX
-bench's frame capture for its device-loop replay; each raises
-``NotImplementedError`` where it has an entry point.
+Multi-session (``save_map`` / ``load_map``, ``pipeline/component_io.py``):
+a loaded map's landmarks enter the estimator and the device descriptor
+table; with loop closure on, each keyframe's tail also relocalises against
+the map's own place-recognition database, and a verified pose moves the
+whole session rigidly onto the map's frame (a rigid correction epoch,
+composed onto the solves in flight). ``add_depth_image`` enables
+depth-aided landmark initialisation at the next keyframe. ``do_final_ba``
+is the offline final bundle adjustment (``pipeline/final_ba.py``); like
+the JAX package's it does not drain the loop, so call ``finish()`` first.
+
+Not ported here: CNN suppression (``cnn_params``, ROADMAP A.15), the
+sharded final BA (``do_final_ba(mesh=...)``, A.14), the CSV taps and the
+JAX bench's frame capture for its device-loop replay; the first two raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,11 +67,14 @@ import dataclasses
 from typing import Callable, Deque, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from okvis2_torch import resolve_device
 from okvis2_torch.graph.estimator import Estimator, EstimatorConfig
 from okvis2_torch.imu.preintegration import ImuParameters
 from okvis2_torch.core import se3_np
+from okvis2_torch.pipeline.component_io import load_component, save_component
+from okvis2_torch.pipeline.final_ba import do_final_ba
 from okvis2_torch.pipeline.frontend_pipeline import Frontend, FrontendConfig
 from okvis2_torch.pipeline.full_graph import LoopClosureBackend, LoopClosureConfig
 from okvis2_torch.solver.packed_solve import MAX_APPEND_SETS
@@ -108,7 +120,7 @@ class SlamSystem:
     ):
         if cnn_params is not None:
             raise NotImplementedError(
-                "okvis2_torch: CNN suppression is not ported yet (ROADMAP A.14)")
+                "okvis2_torch: CNN suppression is not ported yet (ROADMAP A.15)")
         self.device = resolve_device(device)
         self.pipelined = pipelined
         # in-flight frames of the pipelined loop, oldest first: dispatched,
@@ -136,6 +148,12 @@ class SlamSystem:
         self._last_frame_t: Optional[float] = None
         self._callbacks: List[Callable] = []
         self._lost_count = 0
+        # multi-session: the landmarks of loaded maps (a relocalisation moves
+        # the session, not them), the relocalisations applied, the latest
+        # aligned depth frame (t, cam, depth)
+        self._loaded_lids: set = set()
+        self._relocalisations = 0
+        self._latest_depth: Optional[Tuple[float, int, np.ndarray]] = None
         self.tracking = TrackingState()
         self.frames_processed = 0
 
@@ -152,8 +170,50 @@ class SlamSystem:
         return True
 
     def add_depth_image(self, t: float, depth: np.ndarray, cam_idx: int = 0) -> bool:
-        raise NotImplementedError(
-            "okvis2_torch: depth-aided landmark initialisation is not ported yet (ROADMAP A.15)")
+        """An aligned depth frame [H,W] in metres (the RealsenseRgbd path):
+        enables depth-aided landmark initialisation at the next keyframe."""
+        self._latest_depth = (float(t), cam_idx, np.asarray(depth))
+        return True
+
+    def _init_landmarks_from_depth(self, frames, sid: int) -> int:
+        """Landmarks for the keypoints of the depth frame's camera that host
+        none, at ray * depth / ray_z from the aligned depth map (the
+        reference's depth-aided frontend for RGBD rigs); rays are
+        back-projected on the estimator's device. Returns the number
+        added."""
+        if self._latest_depth is None:
+            return 0
+        t_d, ci, depth = self._latest_depth
+        est = self.estimator
+        rec = est.states[sid]
+        if abs(t_d - rec.t) > 0.1:
+            return 0  # stale depth
+        fr = frames[ci]
+        used = {kp for (_l, c, kp) in est.obs_of_state(sid) if c == ci}
+        H, W = depth.shape
+        free = [kp for kp in np.nonzero(fr["mask"])[0] if int(kp) not in used]
+        if not free:
+            return 0
+        uv = fr["xy"][free]
+        d = depth[np.clip(uv[:, 1].astype(int), 0, H - 1), np.clip(uv[:, 0].astype(int), 0, W - 1)]
+        ok = (d > 0.1) & (d < 15.0) & np.isfinite(d)
+        if not ok.any():
+            return 0
+        cam = self.frontend.cameras[ci]
+        rays = cam.back_project(torch.as_tensor(uv[ok], dtype=cam.focal.dtype,
+                                                device=self.device)).cpu().numpy()
+        T_WC7 = se3_np.compose7(rec.pose, self.frontend.T_SC_np[ci])
+        R_WC = se3_np.quat_to_mat(T_WC7[3:7])
+        n = 0
+        for ray, dz, kp in zip(rays.astype(np.float64), d[ok], np.asarray(free)[ok]):
+            p_C = ray * (dz / max(ray[2], 1e-6))
+            p_W = R_WC @ p_C + T_WC7[:3]
+            lid = est.add_landmark(np.concatenate([p_W, [1.0]]), initialised=True)
+            est.add_observation(lid, sid, ci, int(kp), fr["xy"][int(kp)], fr["size"][int(kp)])
+            self.frontend.table.stage_descriptor(lid, ci, int(kp))
+            n += 1
+        self.frontend.table.flush(frames[0]["stacked"]["signs"])
+        return n
 
     def set_optimised_graph_callback(self, cb: Callable):
         self._callbacks.append(cb)
@@ -293,21 +353,27 @@ class SlamSystem:
         return net
 
     def _keyframe_tail(self, sid, frames, images):
-        """Host keyframe work after the descriptor fetch: frontier
-        expansion (expandKeyframe, ViSlamBackend.cpp:357-406), then place
-        recognition (Frontend.cpp:674-899). Returns the detected loop
+        """Host keyframe work after the descriptor fetch: depth-aided
+        initialisation, frontier expansion (expandKeyframe,
+        ViSlamBackend.cpp:357-406), place recognition (Frontend.cpp:674-899)
+        and relocalisation against loaded maps. Returns the detected loop
         keyframe id, or None."""
         est = self.estimator
+        if self._latest_depth is not None:
+            self._init_landmarks_from_depth(frames, sid)
         est.expand_keyframe(sid)
         loop_old_id = None
         if self.loop_backend is not None:
             with SwitchableTimer("2.06 place recognition"):
                 loop_old_id = self.loop_backend.detect_loop(est, sid, frames, self.frontend)
                 self.loop_backend.add_keyframe(est, sid, frames)
+            # multi-session relocalisation: the loaded maps' own databases,
+            # from an unknown pose
             if self.loop_backend.has_components():
-                raise NotImplementedError(
-                    "okvis2_torch: relocalisation against loaded maps is not ported yet "
-                    "(ROADMAP A.13)")
+                with SwitchableTimer("2.09 relocalisation"):
+                    v = self.loop_backend.relocalise(est, sid, frames)
+                    if v is not None:
+                        self._apply_relocalisation(est, sid, frames, v)
         return loop_old_id
 
     def _finish_deferred_keyframe(self):
@@ -468,6 +534,38 @@ class SlamSystem:
             cb(t, sid, est.states[sid].pose.copy(), self.tracking)
 
     # ------------------------------------------------------------------
+    def _apply_relocalisation(self, est, sid, frames, v):
+        """Multi-session relocalisation: where the verified map-frame pose
+        differs from the session's estimate (> 5 cm or 0.05 rad), move the
+        whole session rigidly onto the map's frame: states, world-frame
+        velocities and the session's landmarks, not the loaded map's; then
+        adopt the matched map landmarks as observations of this keyframe
+        (the reference re-anchors through T_AiS and the loop-closure
+        machinery, ViSlamBackend.hpp:686-687, Frontend.cpp:674-749)."""
+        T_meas = np.asarray(v["T_WS7"])
+        T_est = est.states[sid].pose
+        d_pos = float(np.linalg.norm(T_meas[:3] - T_est[:3]))
+        dq = se3_np.quat_mul(se3_np.quat_conj(T_est[3:7]), T_meas[3:7])
+        d_rot = float(np.linalg.norm(se3_np.log_so3(dq)))
+        if d_pos > 0.05 or d_rot > 0.05:
+            T_corr = se3_np.compose7(T_meas, se3_np.inverse7(T_est))
+            R = se3_np.quat_to_mat(T_corr[3:7])
+            for rec in est.states.values():
+                rec.pose = se3_np.compose7(T_corr, rec.pose)
+                rec.speed_bias = rec.speed_bias.copy()
+                rec.speed_bias[:3] = R @ rec.speed_bias[:3]
+            for lid, lm in est.landmarks.items():
+                if lid in self._loaded_lids:
+                    continue
+                hp = lm.hp_W
+                lm.hp_W = np.concatenate([R @ hp[:3] + T_corr[:3] * hp[3], hp[3:4]])
+            # the session moved rigidly: solves in flight, packed before,
+            # are composed with the same correction
+            self._note_pose_correction(T_corr)
+        self.loop_backend._merge_loop_landmarks(est, sid, v["pairs"], frames, self.frontend)
+        self._relocalisations += 1
+
+    # ------------------------------------------------------------------
     def _reinitialise(self):
         """Tracking lost for several frames: keep the trajectory history
         but restart the landmark map and the window from the current
@@ -491,3 +589,52 @@ class SlamSystem:
     def trajectory(self):
         self.finish()
         return self.estimator.trajectory()
+
+    # ------------------------------------------------------------------
+    # map save/load (ThreadedSlam::saveMap, Frontend::loadComponent) and
+    # the final BA
+    # ------------------------------------------------------------------
+    def save_map(self, path: str):
+        """Write the session's graph with its landmarks' descriptors, packed
+        as uint32[16] words, bit k of word j the sign of bit 32 j + k
+        (Component::save, okvis_ceres/src/Component.cpp:405-526)."""
+        descs = {}
+        for lid, signs in self.frontend.lm_descriptors.items():
+            bits = (np.asarray(signs) > 0).astype(np.uint32).reshape(-1, 32)
+            descs[lid] = (bits << np.arange(32, dtype=np.uint32)).sum(axis=-1, dtype=np.uint32)
+        save_component(path, self.estimator, descs)
+
+    def load_map(self, path: str) -> int:
+        """Load a saved session as localisation context
+        (Frontend::loadComponent, Frontend.cpp:180-218): its landmarks join
+        the estimator (initialised, without observations), those with
+        descriptors enter the device table, and with loop closure on the
+        map's keyframes get a place-recognition database of their own.
+        Returns the number of landmarks loaded."""
+        data = load_component(path)
+        id_map = {lid: self.estimator.add_landmark(hp, initialised=True)
+                  for lid, hp in data["landmarks"].items()}
+        loaded, kf_docs = {}, {}
+        for obs in data["observations"]:
+            if obs["lid"] not in id_map:
+                continue
+            new_id = id_map[obs["lid"]]
+            kf_docs.setdefault(obs["sid"], []).append(new_id)
+            if "descriptor" in obs:
+                bits = ((obs["descriptor"][:, None] >> np.arange(32, dtype=np.uint32)) & 1)
+                signs = np.where(bits.reshape(-1) > 0, 1.0, -1.0).astype(np.float32)
+                self.frontend.lm_descriptors[new_id] = signs
+                loaded[new_id] = signs
+        # the load writes the device table directly: staged updates first
+        self.frontend._flush_staged()
+        self.frontend.table.load_host_descriptors(loaded,
+                                                  dtype=self.frontend.cameras[0].focal.dtype)
+        self._loaded_lids |= set(id_map.values())
+        if self.loop_backend is not None and loaded:
+            self.loop_backend.add_component(kf_docs, loaded)
+        return len(id_map)
+
+    def do_final_ba(self, iterations: int = 30, mesh=None) -> dict:
+        """The offline final bundle adjustment (doFinalBa) on the estimator's
+        device; ``mesh`` (the sharded solve, ROADMAP A.14) must be None."""
+        return do_final_ba(self.estimator, iterations, mesh)

@@ -652,3 +652,118 @@ def test_refine_pose_hessian_card_matches_cpu(cuda):
     assert np.abs(got[0] - ref[0]).max() < 1e-8
     for a, b in zip(got[1:], ref[1:]):
         assert np.abs(a - b).max() < 1e-8 * np.abs(b).max()
+
+
+@pytest.fixture(scope="module")
+def closed_drive():
+    """The synchronous closure drive on the card, finished (its loop closed
+    at frame 8), for the multi-session tests below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    closures, edges, _, slam = _loop_closure_drive(torch.device("cuda"))
+    assert len(closures) >= 1 and edges
+    return slam
+
+
+def test_final_ba_card_matches_cpu(cuda, closed_drive, monkeypatch):
+    """The closure drive's final BA on the card (``do_final_ba``, float32,
+    10 LM iterations at 1024 landmark and 8192 observation slots): the
+    marginalisation edges give their observations back, the loop edge
+    stays, finite diagnostics, one heatmap per camera. Its pack, in
+    float64, solved on the card and on the CPU from identical inputs:
+    poses within 1e-8 m, landmarks (unit homogeneous vectors) within 1e-8,
+    the same iterations."""
+    from okvis2_torch.pipeline import final_ba as fba
+
+    packs, solve = [], fba.solve_window
+
+    def solve_and_keep(prob, *a):
+        packs.append(prob.to(device="cpu"))
+        return solve(prob, *a)
+
+    monkeypatch.setattr(fba, "solve_window", solve_and_keep)
+    est = closed_drive.estimator
+    info = fba.do_final_ba(est, iterations=10, max_landmarks=1024, max_obs=8192)
+    assert info["restored_observations"] > 0 and info["states"] > 4 and len(packs) == 1
+    assert [e.kind for e in est.pose_graph_edges] == ["loop"]
+    assert np.isfinite(info["reproj_rms_px"]) and info["reproj_heatmaps"].shape[0] == 2
+    assert all(np.isfinite(info[k]).all() for k in ("bias_gyro_mean", "bias_accel_std"))
+    f64, cfg = torch.float64, fba.SolverConfig(max_iterations=10)
+    p64 = packs[0].to(dtype=f64)
+    out = {}
+    for dev in ("cpu", cuda):
+        sol, st = solve(p64.to(device=dev), tuple(c.to(device=dev, dtype=f64) for c in est.cameras),
+                        est.imu_params.to(device=dev, dtype=f64), cfg)
+        out[str(dev)] = (sol.pose.cpu().numpy(), sol.landmarks.cpu().numpy(), st["iterations"])
+    (pc, lc, ic), (pg, lg, ig) = out["cpu"], out[str(cuda)]
+    unit = lambda hp: hp / np.linalg.norm(hp, axis=-1, keepdims=True)  # noqa: E731
+    n_s, n_l = info["states"], info["landmarks"]
+    d_pose = float(np.abs(pg[:n_s, :3] - pc[:n_s, :3]).max())
+    d_hp = float(np.abs(unit(lg[:n_l]) - unit(lc[:n_l])).max())
+    print(f"final BA, float64, card vs CPU: poses within {d_pose:.3e} m, landmarks {d_hp:.3e}; "
+          f"iterations {ig} / {ic}; {n_s} states, {n_l} landmarks")
+    assert d_pose < 1e-8 and d_hp < 1e-8 and ig == ic
+
+
+def test_map_save_and_load_on_card(cuda, closed_drive, tmp_path):
+    """The drive's map saved and loaded into a new system on the card: the
+    table's device signs equal the file's descriptor bits, one slot per
+    landmark with a descriptor, and the map registered for relocalisation."""
+    from okvis2_torch.pipeline.component_io import load_component
+    from okvis2_torch.pipeline.full_graph import LoopClosureBackend
+
+    path = str(tmp_path / "drive.map")
+    closed_drive.save_map(path)
+    slam = _slam_system(cuda)
+    slam.loop_backend = LoopClosureBackend(slam.frontend.cameras, slam.frontend.extrinsics,
+                                           device=cuda)
+    n = slam.load_map(path)
+    data = load_component(path)
+    assert n == len(data["landmarks"]) > 50
+    words = {o["lid"]: o["descriptor"] for o in data["observations"] if "descriptor" in o}
+    file_lid = list(data["landmarks"])
+    table = slam.frontend.table
+    assert len(table.slot_of) == len(words) > 10 and table.staged_count() == 0
+    signs, valid = table.signs[:, 0].cpu().numpy(), table.valid[:, 0].cpu().numpy()
+    for lid, s in table.slot_of.items():
+        bits = (words[file_lid[lid]][:, None] >> np.arange(32, dtype=np.uint32)) & 1
+        assert valid[s] and np.array_equal(signs[s] > 0, bits.reshape(-1) > 0), lid
+    assert slam.loop_backend.has_components()
+
+
+def test_depth_init_card_matches_cpu(cuda):
+    """Depth-aided landmark initialisation on identical frames (the CPU
+    frontend's keypoints and descriptors) on the card and on the CPU: the
+    same landmarks within 1e-5 m (float32 back-projection), the same table
+    slots and device signs."""
+    from okvis2_torch.pipeline.dataset import SyntheticDataset
+
+    pose0 = np.array([0.0, 0, 0, 0, 0, 0, 1.0])
+    out = []
+    frames_cpu = None
+    for dev in ("cpu", cuda):
+        slam = _slam_system(dev)
+        est = slam.estimator
+        sid = est.add_state(0.0, np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0))
+        est.states[sid].pose = pose0
+        if frames_cpu is None:
+            ds = SyntheticDataset(slam.frontend.cameras, slam.frontend.extrinsics,
+                                  est.imu_params, n_stars=1500, seed=11, device="cpu")
+            imgs = ds.render(pose0)
+        frames, _ = slam.frontend.associate_frame(est, imgs, sid, pose0)
+        if frames_cpu is None:
+            frames_cpu = frames
+        else:  # the CPU frontend's keypoints and descriptors, on this device
+            stacked = {k: v.to(dev) for k, v in frames_cpu[0]["stacked"].items()}
+            frames = [dict(f, stacked=stacked) for f in frames_cpu]
+        H, W = imgs[0].shape
+        slam.add_depth_image(0.0, np.full((H, W), 4.0))
+        n = slam._init_landmarks_from_depth(frames, sid)
+        out.append((n, {lid: lm.hp_W.copy() for lid, lm in est.landmarks.items()},
+                    dict(slam.frontend.table.slot_of), slam.frontend.table.signs.cpu().numpy()))
+    (nc, lc, sc, gc), (ng, lg, sg, gg) = out
+    assert ng == nc > 10 and lg.keys() == lc.keys() and sg == sc
+    d = max(float(np.abs(lg[k] - lc[k]).max()) for k in lc)
+    print(f"depth-aided init, card vs CPU: {ng} landmarks within {d:.3e} m")
+    assert d < 1e-5
+    np.testing.assert_array_equal(gg, gc)

@@ -132,7 +132,8 @@ def test_import_leaves_jax_out():
             "okvis2_torch.graph.mst, okvis2_torch.factors.two_pose, okvis2_torch.utils.timing, "
             "okvis2_torch.solver.packed_solve, okvis2_torch.cameras.ncamera, "
             "okvis2_torch.pipeline.trajectory, okvis2_torch.pipeline.slam, "
-            "okvis2_torch.pipeline.synthetic_run; "
+            "okvis2_torch.pipeline.synthetic_run, okvis2_torch.pipeline.full_graph, "
+            "okvis2_torch.pipeline.final_ba, okvis2_torch.pipeline.component_io; "
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True)
@@ -199,15 +200,14 @@ def _rig_args():
         device="cpu")
 
 
-@pytest.mark.parametrize("option", ["cnn_params", "add_depth_image"])
+@pytest.mark.parametrize("option", ["cnn_params", "final_ba_mesh"])
 def test_unported_options_raise(option):
-    """CNN suppression and depth-aided initialisation are not ported:
-    asking for them raises, naming the ROADMAP item, instead of being
-    ignored."""
-    kw = {"cnn_params": {"cnn_params": {}}, "add_depth_image": {}}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    """CNN suppression and the sharded final BA are not ported: asking for
+    them raises, naming the ROADMAP item, instead of being ignored."""
+    kw, item = {"cnn_params": ({"cnn_params": {}}, "A.15"), "final_ba_mesh": ({}, "A.14")}[option]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         s = tslam.SlamSystem(*_rig_args(), device="cpu", **kw)
-        s.add_depth_image(0.0, np.zeros((24, 32)))
+        s.do_final_ba(mesh=object())
 
 
 def _frame_associate_args():

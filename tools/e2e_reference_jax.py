@@ -34,6 +34,26 @@ one, the loop edges, the keyframes that ran place recognition, the
 closures rejected by the drift budget and the last verification's
 outcome. Phase 10's drives: ``40 8 circle 2 0 0 4096 1 2`` (synchronous)
 and ``40 8 circle 2 1 1 4096 1 2`` (pipelined, one frame kept in flight).
+
+``final_ba`` 1 runs ``SlamSystem.do_final_ba()`` at its defaults after the
+session has drained (``trajectory()``, which calls ``finish()``, as the
+app does) and gives the final trajectory's aligned ATE, the restored
+observations, the packed counts and the reprojection RMS. ``second_start``
+> 0 then saves the map (``save_map``) and runs a second session: a fresh
+``SlamSystem`` with loop closure on (the same ``LoopClosureConfig``)
+loads it (``load_map``) and is fed the same stream from ``second_start``
+seconds on (IMU samples and frames at t >= second_start), once per entry
+of ``second_modes`` ("sync", "pipelined"; comma-separated; the pipelined
+session keeps ``second_min_pending`` frames in flight). For each the JSON
+line gives the frames whose host work relocalised (the frame index counts
+from the session's first frame), each relocalisation's correction, the
+relocalised keyframe's position error against ground truth right after it
+(no alignment: the map's frame is the first session's), the final
+trajectory's unaligned position errors from the first relocalising frame
+on, the landmarks loaded and those with descriptors. Phase 11's drive:
+``40 8 circle 2 0 0 4096 1 2 1 2.5 sync,pipelined 1`` (~4.5 min on the
+CPU: the session ~100 s, its final BA ~40 s, the second sessions ~15 s and
+~115 s, most of it compiling).
 """
 
 import json
@@ -54,6 +74,10 @@ def main(argv):
     obs_slots = int(argv[7]) if len(argv) > 7 else 4096
     loop_closures = bool(int(argv[8])) if len(argv) > 8 else False
     exclude_recent = int(argv[9]) if len(argv) > 9 else 5
+    final_ba = bool(int(argv[10])) if len(argv) > 10 else False
+    second_start = float(argv[11]) if len(argv) > 11 else 0.0
+    second_modes = argv[12].split(",") if len(argv) > 12 else ["sync"]
+    second_min_pending = int(argv[13]) if len(argv) > 13 else 1
     import numpy as np
 
     from okvis2_tpu.cameras.distortion import RadialTangentialDistortion
@@ -141,6 +165,32 @@ def main(argv):
         "rejected_by_budget": lb.num_rejected_by_budget,
         "last_verify_info": lb.last_verify_info,
     }
+    extra = {}
+    if final_ba:
+        t0 = time.perf_counter()
+        info = slam.do_final_ba()
+        extra["final_ba"] = {
+            "ate_rmse_m": ate_rmse(est.trajectory(), gt, align=True),
+            "restored_observations": info["restored_observations"], "states": info["states"],
+            "landmarks": info["landmarks"], "reproj_rms_px": info["reproj_rms_px"],
+            "loop_edges": [[e.id_i, e.id_j] for e in est.pose_graph_edges if e.kind == "loop"],
+            "wall_s": time.perf_counter() - t0}
+        print(json.dumps({"final_ba": extra["final_ba"]}), flush=True)
+    if second_start > 0:
+        import tempfile
+
+        path = os.path.join(tempfile.mkdtemp(), "session1.map")
+        slam.save_map(path)
+        for mode in second_modes:
+            s2 = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=mode == "pipelined",
+                            do_loop_closures=True,
+                            loop_closure_config=LoopClosureConfig(exclude_recent=exclude_recent))
+            if mode == "pipelined":
+                s2._force_min_pending = second_min_pending
+            ds2 = SyntheticDataset(cams, exts, imu, n_stars=2500, duration=n_frames / rate,
+                                   frame_rate=rate, imu_rate=200.0, seed=0, trajectory=trajectory)
+            extra["second_" + mode] = second_session(s2, ds2, path, second_start)
+            print(json.dumps({"second_" + mode: extra["second_" + mode]}), flush=True)
     print(json.dumps({
         "frames": len(gt), "frame_rate": rate, "trajectory": trajectory,
         "num_keyframes": num_keyframes, "pipelined": pipelined,
@@ -150,8 +200,71 @@ def main(argv):
         "keyframes": len(kf_frames), "keyframe_frames": kf_frames, "landmarks": len(est.landmarks),
         "pose_graph_edges": len(est.pose_graph_edges),
         "edges": [[e.id_i, e.id_j] for e in est.pose_graph_edges], "max_window": max_window,
-        **loop, "wall_s": time.perf_counter() - t_start,
+        **loop, **extra, "wall_s": time.perf_counter() - t_start,
     }))
+
+
+def second_session(slam, ds, path, start):
+    """Load the map at ``path`` into ``slam`` and feed ``ds``'s stream from
+    ``start`` seconds on; returns the relocalisation record."""
+    import numpy as np
+
+    from okvis2_tpu.core import se3_np
+
+    t0 = time.perf_counter()
+    n_loaded = slam.load_map(path)
+    n_desc = len(slam.frontend.lm_descriptors)
+    est = slam.estimator
+    corrections = []
+    apply_reloc = slam._apply_relocalisation
+
+    def recorded(est_, sid, frames, v):
+        before = est_.states[sid].pose.copy()
+        apply_reloc(est_, sid, frames, v)
+        after = est_.states[sid].pose
+        dq = se3_np.quat_mul(se3_np.quat_conj(before[3:7]), after[3:7])
+        corrections.append({"sid": sid, "frame": est_.state_order.index(sid),
+                            "d_pos_m": float(np.linalg.norm(after[:3] - before[:3])),
+                            "d_rot_deg": float(np.degrees(np.linalg.norm(se3_np.log_so3(dq)))),
+                            "error_after_m": float(np.linalg.norm(
+                                after[:3] - gt[est_.state_order.index(sid)][1][:3])),
+                            "num_inliers": int(v["num_inliers"])})
+
+    slam._apply_relocalisation = recorded
+    gt, reloc_frames = [], []
+    for ev in ds.stream():
+        if ev[1] < start - 1e-9:
+            continue
+        if ev[0] == "imu":
+            slam.add_imu_measurement(ev[1], ev[2], ev[3])
+            continue
+        _, t, images, pose = ev
+        gt.append((t, pose))
+        slam.add_images(t, [(np.clip(im, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+                            for im in images])
+        n0 = getattr(slam, "_relocalisations", 0)
+        slam.process_frame()
+        if getattr(slam, "_relocalisations", 0) > n0:
+            reloc_frames.append(len(gt) - 1)
+        print(f"second session frame {len(gt):2d}: relocalisations "
+              f"{getattr(slam, '_relocalisations', 0)}, landmarks {len(est.landmarks)}",
+              flush=True)
+    n0 = getattr(slam, "_relocalisations", 0)
+    traj = slam.trajectory()
+    if getattr(slam, "_relocalisations", 0) > n0:
+        reloc_frames.append("finish")
+    err = [float(np.linalg.norm(p[:3] - g[1][:3])) for (_, p), g in zip(traj, gt)]
+    first = corrections[0]["frame"] if corrections else len(gt)
+    after = err[first:]
+    return {"start_s": start, "frames": len(gt), "loaded": n_loaded,
+            "loaded_with_descriptors": n_desc, "relocalisations": getattr(slam, "_relocalisations", 0),
+            "relocalising_frames": reloc_frames, "corrections": corrections,
+            "final_error_from_first_m": {"rms": float(np.sqrt(np.mean(np.square(after))))
+                                         if after else None,
+                                         "max": max(after) if after else None,
+                                         "last": err[-1]},
+            "errors_m": err, "landmarks": len(est.landmarks),
+            "wall_s": time.perf_counter() - t0}
 
 
 if __name__ == "__main__":
