@@ -71,6 +71,22 @@ hand-written kernel against its plain PyTorch version:
                closures and drift-budget rejections as the JAX run at the
                same schedule, at phase 9's ATE rule. Launch counts are zeroed
                just before each drive and read just after
+ 11. multi-session  phase 10's synchronous session ended as the app ends
+               it (finish, the final BA, save_map), then a second session
+               in each loop that loads the map and relocalises
+               (MULTI_SESSION)
+ 12. slam cnn  CNN suppression (SlamSystem(cnn_params=...), the committed
+               Fast-SCNN weights) on the textured world at phase 8's
+               configuration, in both loops (CNN_DRIVES): keyframes and
+               landmarks suppressed per keyframe against the JAX run, the
+               ATE, the keyframes' class maps on the card against the CPU
+               port and against the renderer's labels, the network's ms
+               per image; launch counts zeroed just before each drive
+ 13. sharded final BA  phase 11's final-BA pack solved landmark-sharded
+               (parallel/sharded_ba.py) at world size 1 over NCCL and 2
+               over gloo (two spawned ranks on the one card), against the
+               unsharded solve in float64; ms, kernels and collectives per
+               LM iteration
 
 Every check raises on failure, so any failing phase exits non-zero. The
 line before the last is the kernels' JSON record; the last line is
@@ -80,6 +96,7 @@ before printing any result.
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -251,6 +268,56 @@ MULTI_SESSION = dict(
 # float32 solve at these capacities reduces with index_add_, whose order
 # varies run to run)
 FBA_F64_TOL_M, FBA_F64_TOL_HP = 1e-6, 1e-6
+
+
+# phase 12: CNN suppression (SlamSystem(cnn_params=CNN_WEIGHTS), the
+# committed Fast-SCNN weights, read by path) at the bench's configuration
+# (phase 8's rig, 512 keypoints, EstimatorConfig, float32) on the textured
+# world (TexturedWorldDataset, seed 0; its float images in [0, 1] go to the
+# system as they are), the bench's default trajectory, 30 frames at 20 Hz:
+# the camera sees the sky ceiling (2-6 % of the pixels) and the person
+# occluder (2.5 %) on every frame; the network runs on 768x512 (padded to
+# multiples of 64). The JAX package on the same frames (CPU, float32):
+# - synchronous (tools/e2e_reference_jax.py 30 20 default 5 0 0 4096 0 5
+#   0 0 sync 1 textured): keyframes at frames 0 and 24, 14 and 11
+#   landmarks suppressed there, ATE 15.157 mm; on the keyframes' images the
+#   segmentation gets 0.5379 of the sky pixels and 0.1319 of the person
+#   pixels of render_with_labels;
+# - pipelined, one frame kept in flight, the card's schedule (... 30 20
+#   default 5 1 1 4096 0 5 0 0 sync 1 textured): keyframes at frames 0, 1,
+#   2 and 24, suppressing 14, 4, 3 and 9; ATE 0.116929 m.
+# Held: the synchronous keyframes; the landmarks suppressed per keyframe
+# within max(2, 5 %) of the JAX run's; phase 8's ATE rule in both loops
+# (1.5x the JAX ATE + 5 mm); on the synchronous keyframes' images the
+# card's class maps against the CPU port's (CNN_CLASS_AGREE of the pixels,
+# logits within CNN_LOGIT_TOL of their largest magnitude) and the pixel
+# accuracy on sky and person at least the JAX package's - CNN_ACC_SLACK.
+CNN_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "okvis2_tpu", "models",
+                           "weights", "fast_scnn_synthetic.npz")
+CNN_DRIVES = {
+    "slam cnn": dict(
+        pipelined=False, jax_ate_m=0.015156986374843336, jax_keyframes=[0, 24],
+        jax_suppressed=[[0, 14], [24, 11]],
+        jax_accuracy={"sky": 0.5379370278761949, "person": 0.13185895536459877}),
+    "slam cnn pipelined": dict(
+        pipelined=True, jax_ate_m=0.1169292557985385, jax_keyframes=[0, 1, 2, 24],
+        jax_suppressed=[[0, 14], [1, 4], [2, 3], [24, 9]]),
+}
+CNN_FRAMES, CNN_RATE, CNN_WARMUP = 30, 20.0, 5
+CNN_CLASS_AGREE, CNN_LOGIT_TOL, CNN_ACC_SLACK = 0.999, 1e-3, 0.01
+# phase 13: phase 11's final-BA pack (S/L/O/R 32/8192/65536/256) solved
+# landmark-sharded (parallel/sharded_ba.py): at world size 1 over NCCL in
+# this process, and at world size 2 over gloo in two spawned ranks on the
+# one card (NCCL refuses two ranks on one device), each held in float64 at
+# QUEUED_FG_F64_ITERATIONS against phase 11's unsharded float64 solve on
+# the card and against each other (the same LM iterations; poses and
+# landmarks at FBA_F64_TOL_M / FBA_F64_TOL_HP); the float32 solve at the
+# final BA's 30 iterations, world size 1, must be finite and is logged
+# against phase 11's float32 solve. The JAX package's sharded final BA on
+# this session (tools/e2e_reference_jax.py 40 8 circle 2 0 0 4096 1 2 1 0
+# sync 1 stars 2; 2-device virtual CPU mesh, float32): ATE 4.764 mm (its
+# unsharded final BA: 4.765 mm).
+FBA_ITERATIONS = 30
 
 
 def log(msg):
@@ -1292,7 +1359,8 @@ def phase_multi_session(card, run, gt, online_ate):
     truth and ATE): finish(), the final BA with its checks and its pack
     solved again in float64 on the card and on the CPU, save_map and the
     file read back, then the second sessions (MULTI_SESSION["drives"]).
-    Returns the kernels' launch counts over each second session."""
+    Returns the kernels' launch counts over each second session, and the
+    final BA's pack with its unsharded solves (for phase 13)."""
     import tempfile
 
     from okvis2_torch.pipeline import final_ba as fba
@@ -1396,8 +1464,14 @@ def phase_multi_session(card, run, gt, online_ate):
             f"{len(data['rel_edges'])} relative edges in {save_ms:.3f} ms; read back: poses "
             f"within {d_pose:.1e}, landmarks within {d_lm:.1e} (the file's 9 decimals), "
             f"descriptors bit for bit")
-        return {name: second_session(card, name, d, path, data)
-                for name, d in ms["drives"].items()}
+        launches = {name: second_session(card, name, d, path, data)
+                    for name, d in ms["drives"].items()}
+    # what phase 13 solves again, sharded: the pack, in float64 on the CPU,
+    # and its unsharded solves (float64 at QUEUED_FG_F64_ITERATIONS on the
+    # card, float32 at the final BA's 30 iterations)
+    pack = {"prob": prob, "p64": p64, "ref64": out[DEVICE], "pose32": again[0].pose.cpu().numpy(),
+            "cams": est.cameras, "imu": est.imu_params, "states": n_s, "landmarks": n_l}
+    return launches, pack
 
 
 def second_session(card, name, dd, path, data):
@@ -1565,6 +1639,235 @@ def profile_frame(frame):
         {e.key[:60]: round(e.self_device_time_total, 1) for e in top}))
 
 
+def phase_cnn(card, name):
+    """Phase 12, one drive (CNN_DRIVES[name]): the textured world through
+    SlamSystem with CNN suppression; returns the kernels' launch counts
+    over its frames."""
+    from okvis2_torch.core.se3 import Transformation
+    from okvis2_torch.frontend import DetectionConfig
+    from okvis2_torch.graph.estimator import EstimatorConfig
+    from okvis2_torch.models.fast_scnn import PERSON_CLASS, SKY_CLASS, image_logits
+    from okvis2_torch.models.suppression import CnnSuppressor
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.pipeline.dataset import TexturedWorldDataset
+    from okvis2_torch.pipeline.frontend_pipeline import FrontendConfig
+    from okvis2_torch.pipeline.slam import SlamSystem
+    from okvis2_torch.pipeline.trajectory import ate_rmse
+    from okvis2_torch.utils.timing import Timing
+
+    d, tag = CNN_DRIVES[name], f"[{name}]"
+    cams, T_SC, imu = tracking_rig(DEVICE)
+    exts = [Transformation(r=torch.tensor(T[:3], dtype=torch.float32, device=DEVICE),
+                           q=torch.tensor(T[3:], dtype=torch.float32, device=DEVICE))
+            for T in T_SC]
+    t0 = time.perf_counter()
+    ds = TexturedWorldDataset(cams, exts, imu, duration=CNN_FRAMES / CNN_RATE,
+                              frame_rate=CNN_RATE, imu_rate=200.0, seed=0, trajectory="default",
+                              device=DEVICE)
+    labels, render_labelled = [], ds.render_with_labels
+
+    def render(T_WS):  # the stream's frames, with their class maps kept
+        pairs = render_labelled(T_WS)
+        labels.append([lab for _, lab in pairs])
+        return [im for im, _ in pairs]
+
+    ds.render = render
+    events = list(ds.stream())
+    log(f"{tag} rendered {len(labels)} {W}x{H} stereo frames of the textured world on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+    est_cfg = EstimatorConfig(window_slots=12, landmark_slots=512, obs_slots=4096,
+                              imu_seg_capacity=64, enforce_realtime=True,
+                              realtime_time_limit=1.0 / 200.0, num_keyframes=5)
+    fe_cfg = FrontendConfig(detection=DetectionConfig(max_keypoints=N_KP),
+                            map_match_capacity=TRACK_CAP)
+    slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=d["pipelined"], device=DEVICE,
+                      cnn_params=CNN_WEIGHTS)
+    slam._force_min_pending = 1 if d["pipelined"] else 0  # the JAX run's schedule
+    est = slam.estimator
+    kf_of, records, suppress = {}, [], slam.cnn.suppress
+    slam.set_optimised_graph_callback(
+        lambda t, sid, pose, tr: kf_of.__setitem__(sid, bool(tr.is_keyframe)))
+
+    def recorded(est_, frames, sid, images):
+        ta = time.perf_counter()
+        n = suppress(est_, frames, sid, images)  # ends in the classes' fetch
+        records.append((sid, n, (time.perf_counter() - ta) * 1e3, images))
+        return n
+
+    slam.cnn.suppress = recorded
+    gt, frame_s, in_flight = [], [], []
+    Timing.reset()
+    torch.cuda.synchronize()
+    harris_nms_cuda.launches = 0
+    for ev in events:
+        if ev[0] == "imu":
+            slam.add_imu_measurement(ev[1], ev[2], ev[3])
+            continue
+        gt.append((ev[1], ev[3]))
+        slam.add_images(ev[1], ev[2])
+        ta = time.perf_counter()
+        slam.process_frame()
+        if not d["pipelined"]:
+            torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - ta)
+        in_flight.append(len(slam._pending_frames))
+    slam.finish()
+    torch.cuda.synchronize()
+    launches = harris_nms_cuda.launches
+    ate = ate_rmse(est.trajectory(), gt, align=True)
+    frame_of = est.state_order.index
+    keyframes = [frame_of(s) for s in est.state_order if kf_of.get(s)]
+    suppressed = [[frame_of(sid), n] for sid, n, _, _ in records]
+    stage = Timing.get("2.07 cnn suppression")
+    steady = frame_s[CNN_WARMUP:]
+    bar = 1.5 * d["jax_ate_m"] + 0.005
+    log(f"{tag} {CNN_FRAMES} frames: ATE {ate:.6f} m (bar {bar:.6f} m; the JAX package "
+        f"{d['jax_ate_m']:.6f} m), keyframes at frames {keyframes} (JAX {d['jax_keyframes']}), "
+        f"landmarks suppressed per keyframe {suppressed} (JAX {d['jax_suppressed']}), "
+        f"{slam.cnn.num_suppressed} in all, landmarks {len(est.landmarks)}; frames in flight "
+        f"after each dispatch {json.dumps({str(k): in_flight.count(k) for k in set(in_flight)})}")
+    log(f"{tag} process_frame {len(steady) / sum(steady):.3f} frames/s over frames "
+        f"{CNN_WARMUP + 1}-{CNN_FRAMES} (median {statistics.median(steady) * 1e3:.3f} ms), "
+        f"\"2.07 cnn suppression\" {stage.total / stage.n * 1e3:.3f} ms per keyframe over "
+        f"{stage.n} keyframes (each: {[round(r[2], 3) for r in records]} ms; the first builds "
+        f"the convolutions' plans), harris_nms launches {launches} ({card})")
+    assert np.isfinite(np.stack([p for _, p in est.trajectory()])).all()
+    assert ate < bar, f"{name}: ATE {ate:.6f} m against a bar of {bar:.6f} m"
+    assert launches == CNN_FRAMES * fe_cfg.detection.octaves, launches
+    assert stage.n == len(records) >= 1 and slam.cnn.num_suppressed >= 1
+    if d["pipelined"]:
+        return {"harris_nms": launches}
+    assert keyframes == d["jax_keyframes"], keyframes
+    assert [k for k, _ in suppressed] == [k for k, _ in d["jax_suppressed"]], suppressed
+    for (_, n), (_, n_jax) in zip(suppressed, d["jax_suppressed"]):
+        assert abs(n - n_jax) <= max(2, 0.05 * n_jax), (suppressed, d["jax_suppressed"])
+
+    # the keyframes' class maps: the card against the CPU port, and against
+    # the renderer's labels
+    model, host = slam.cnn.model(), CnnSuppressor(CNN_WEIGHTS, device="cpu").model()
+    worst_agree, worst_logit = 1.0, 0.0
+    hits = {SKY_CLASS: [0, 0], PERSON_CLASS: [0, 0]}
+    for sid, _, _, images in records:
+        for img, lab in zip(images, labels[frame_of(sid)]):
+            x = torch.from_numpy(np.asarray(img))
+            got = image_logits(model, x.to(DEVICE)).cpu()
+            want = image_logits(host, x)
+            seg = got.argmax(0).numpy()
+            worst_agree = min(worst_agree, float((seg == want.argmax(0).numpy()).mean()))
+            worst_logit = max(worst_logit, float((got - want).abs().max() / want.abs().max()))
+            for c, h in hits.items():
+                h[0] += int((seg[lab == c] == c).sum())
+                h[1] += int((lab == c).sum())
+    acc = {"sky": hits[SKY_CLASS][0] / hits[SKY_CLASS][1],
+           "person": hits[PERSON_CLASS][0] / hits[PERSON_CLASS][1]}
+    x = torch.as_tensor(np.asarray(records[0][3][0]), device=DEVICE)
+    net_ms = cuda_ms(lambda: image_logits(model, x))
+    log(f"{tag} class maps of the {2 * len(records)} keyframe images, card against the CPU "
+        f"port: at least {worst_agree:.6f} of the pixels equal (bar {CNN_CLASS_AGREE}), logits "
+        f"within {worst_logit:.3e} of their largest magnitude (bar {CNN_LOGIT_TOL:g}); pixel "
+        f"accuracy against render_with_labels: sky {acc['sky']:.4f}, person {acc['person']:.4f} "
+        f"(the JAX package {d['jax_accuracy']['sky']:.4f}, {d['jax_accuracy']['person']:.4f}); "
+        f"the network {net_ms:.3f} ms per 768x512 image (CUDA events, warm L2) ({card})")
+    assert worst_agree >= CNN_CLASS_AGREE and worst_logit <= CNN_LOGIT_TOL, (worst_agree,
+                                                                             worst_logit)
+    for k, a in acc.items():
+        assert a >= d["jax_accuracy"][k] - CNN_ACC_SLACK, (k, a)
+    return {"harris_nms": launches}
+
+
+def phase_sharded_final_ba(card, pack):
+    """Phase 13 on phase 11's final-BA pack (``pack``, from
+    ``phase_multi_session``): the landmark-sharded solve at world sizes 1
+    (NCCL, this process) and 2 (gloo, two spawned ranks on this card)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from okvis2_torch.parallel import dryrun
+    from okvis2_torch.parallel import make_mesh, shard_problem_by_landmark
+    from okvis2_torch.parallel import solve_full_graph_sharded
+    from okvis2_torch.solver.window_problem import SolverConfig
+
+    tag, f64, it64 = "[sharded final BA]", torch.float64, QUEUED_FG_F64_ITERATIONS
+    n_s, n_l = pack["states"], pack["landmarks"]
+    cams64 = tuple(c.to(device="cpu", dtype=f64) for c in pack["cams"])
+    imu64 = pack["imu"].to(device="cpu", dtype=f64)
+    unit = lambda hp: hp / np.linalg.norm(hp, axis=-1, keepdims=True)  # noqa: E731
+
+    def gaps(pose, lms, ref_pose, ref_lms):
+        return (float(np.abs(pose[:n_s, :3] - ref_pose[:n_s, :3]).max()),
+                float(np.abs(unit(lms[:n_l]) - unit(ref_lms[:n_l])).max()))
+
+    ref_pose, ref_lms, ref_it, ref_ms = pack["ref64"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0, timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = make_mesh(1)
+            for dtype, iters in ((f64, it64), (torch.float32, FBA_ITERATIONS)):
+                prob = pack["p64"] if dtype == f64 else pack["prob"]
+                cams = cams64 if dtype == f64 else pack["cams"]
+                imu = imu64 if dtype == f64 else pack["imu"]
+                sharded = shard_problem_by_landmark(prob, 1)
+
+                def solve():
+                    return solve_full_graph_sharded(sharded, cams, imu, mesh, SolverConfig(),
+                                                    iters)
+
+                # the float64 solve once under the profiler first, which also
+                # warms its new shapes, as the spawned ranks' first solve
+                # does (the float32 solve's kernels are phase 11's 130.6k)
+                kernels = profile_kernels(lambda: solve()[0].pose.cpu()) if dtype == f64 else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solved, st = solve()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                runs[dtype] = (solved.pose.cpu().numpy(), solved.landmarks.cpu().numpy(), st, ms,
+                               kernels)
+        finally:
+            dist.destroy_process_group()
+        path = f"{tmp}/pack64.npz"
+        dryrun.save_pack(path, pack["p64"], cams64, imu64)
+        ranks = dryrun.run_spmd(dryrun.solve_saved_pack, 2,
+                                args=(path, it64, SolverConfig(), True),
+                                backend="gloo", device="cuda", init_dir=tmp)
+    sh2 = shard_problem_by_landmark(pack["p64"], 2)
+    per = [(int(sh2.lm_mask[k * sh2.L // 2:(k + 1) * sh2.L // 2].sum()),
+            int(sh2.obs_mask[k * sh2.O // 2:(k + 1) * sh2.O // 2].sum())) for k in range(2)]
+    p1, l1, st1, ms1, k1 = runs[f64]
+    p32, l32, st32, ms32, _ = runs[torch.float32]
+    d1 = gaps(p1, l1, ref_pose, ref_lms)
+    d2 = gaps(ranks[0]["pose"], ranks[0]["landmarks"], ref_pose, ref_lms)
+    d12 = gaps(ranks[0]["pose"], ranks[0]["landmarks"], p1, l1)
+    d32 = float(np.abs(p32[:n_s, :3] - pack["pose32"][:n_s, :3]).max())
+    per_it = lambda st: (st["collectives"] - 2) / st["iterations"]  # noqa: E731
+    log(f"{tag} float64, {it64} LM iterations: world size 1 (NCCL) {ms1:.3f} ms, {k1} device "
+        f"kernels, {st1['iterations']} iterations, {per_it(st1):g} collectives per LM iteration "
+        f"(3 all-reduces, 1 broadcast; 1 all-reduce before, 1 after); world size 2 (gloo, one "
+        f"card) {ranks[0]['ms']:.3f} / {ranks[1]['ms']:.3f} ms per rank, "
+        f"{ranks[0]['kernels']} / {ranks[1]['kernels']} device kernels per rank, "
+        f"{ranks[0]['iterations']} iterations, {(ranks[0]['collectives'] - 2) / ranks[0]['iterations']:g} "
+        f"collectives per LM iteration; unsharded (phase 11) {ref_ms:.3f} ms, {ref_it} iterations")
+    log(f"{tag} shards at world size 2: S/L/O {sh2.S}/{sh2.L // 2}/{sh2.O // 2} per rank, used "
+        f"landmarks / observations {per}; against the unsharded solve (poses m, landmarks as unit "
+        f"homogeneous vectors): world size 1 {d1[0]:.3e} {d1[1]:.3e}, world size 2 {d2[0]:.3e} "
+        f"{d2[1]:.3e}, world size 2 against 1 {d12[0]:.3e} {d12[1]:.3e} (bars {FBA_F64_TOL_M:g}, "
+        f"{FBA_F64_TOL_HP:g})")
+    log(f"{tag} float32, {FBA_ITERATIONS} LM iterations, world size 1: {ms32:.3f} ms, "
+        f"{st32['iterations']} iterations, {per_it(st32):g} collectives per LM iteration; poses "
+        f"within {d32:.3e} m of phase 11's unsharded float32 solve ({card})")
+    assert st1["iterations"] == ref_it == ranks[0]["iterations"] == ranks[1]["iterations"]
+    for d in (d1, d2, d12):
+        assert d[0] < FBA_F64_TOL_M and d[1] < FBA_F64_TOL_HP, (d1, d2, d12)
+    for k in ("pose", "landmarks"):
+        assert np.array_equal(ranks[0][k], ranks[1][k]), k
+    assert np.isfinite(p32).all() and np.isfinite(l32).all()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA card", file=sys.stderr)
@@ -1599,8 +1902,13 @@ def main():
         else:
             launches_slam[name], sessions[name] = phase_loop_sync(card, name, d)
     done("10 slam loop closure")
-    launches_slam.update(phase_multi_session(card, *sessions[MULTI_SESSION["session"]]))
+    launches_ms, fba_pack = phase_multi_session(card, *sessions[MULTI_SESSION["session"]])
+    launches_slam.update(launches_ms)
     done("11 multi-session")
+    launches_slam.update({name: phase_cnn(card, name) for name in CNN_DRIVES})
+    done("12 slam cnn")
+    phase_sharded_final_ba(card, fba_pack)
+    done("13 sharded final BA")
     for k in kernels:
         by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
         by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})

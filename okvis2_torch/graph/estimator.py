@@ -196,6 +196,18 @@ class _ObsDict(dict):
                 self.hook(self.owner.id, k, False)
         super().clear()
 
+    def __reduce__(self):
+        # pickle and deepcopy: the items are restored without the hook and
+        # the revision count, which belong to the copied records already
+        return (_rebuild_obs_dict, (self.owner, self.hook, dict(self)))
+
+
+def _rebuild_obs_dict(owner, hook, items):
+    d = _ObsDict(owner)
+    dict.update(d, items)
+    d.hook = hook
+    return d
+
 
 class _ObsArena:
     """Global observation-row store, kept exact by the _ObsDict hook.

@@ -1,9 +1,10 @@
 """State carried across from the JAX package, as numpy arrays.
 
-The system has no learned weights; what crosses over is the camera rig,
-the IMU parameters, the preintegrated IMU segments, the window problem, the
-tracking state (the landmark descriptor table), the frontend's and the
-estimator's configs, and the estimator's host records.
+What crosses over is the camera rig, the IMU parameters, the preintegrated
+IMU segments, the window problem, the tracking state (the landmark
+descriptor table), the frontend's and the estimator's configs, the
+estimator's host records, and the one learned model's weights (Fast-SCNN,
+from the JAX package's flattened Flax checkpoint).
 Every converter takes (or gives) the JAX package's own field names, leaf
 by leaf as numpy arrays, so both packages can compute on identical inputs.
 Nothing here imports JAX: the caller turns the reference's objects into
@@ -27,6 +28,7 @@ from okvis2_torch.cameras.pinhole import PinholeCamera
 from okvis2_torch.frontend.detection import DetectionConfig
 from okvis2_torch.graph.estimator import EstimatorConfig
 from okvis2_torch.imu.preintegration import ImuParameters, Preintegrated
+from okvis2_torch.models.fast_scnn import FastSCNN
 from okvis2_torch.pipeline.frontend_pipeline import DeviceLandmarkTable, FrontendConfig
 from okvis2_torch.solver.window_problem import WindowProblem
 
@@ -183,3 +185,41 @@ def estimator_records_to_numpy(est) -> dict:
              for e in est.pose_graph_edges]
     return {"window": list(est.window), "state_order": list(est.state_order),
             "states": states, "landmarks": landmarks, "pose_graph_edges": edges}
+
+
+# Flax leaf -> state_dict leaf, by (collection, leaf name)
+_FLAX_LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
+              ("params", "scale"): "weight", ("batch_stats", "mean"): "running_mean",
+              ("batch_stats", "var"): "running_var"}
+
+
+def fast_scnn_state_dict_from_flax(flat: dict) -> dict:
+    """The JAX package's Fast-SCNN variables, flattened as its checkpoint
+    stores them (``{"params/<module>/.../kernel": array, ...,
+    "batch_stats/.../mean": array}``) -> a ``state_dict`` for
+    ``models.fast_scnn.FastSCNN`` (float32 tensors on the CPU).
+
+    Conv kernels [kh,kw,in/groups,out] become [out,in/groups,kh,kw]; the
+    BatchNorm fields scale/bias/mean/var become weight/bias/running_mean/
+    running_var (both packages use eps 1e-5). Strict: a key or shape the
+    model does not have, or a model leaf without a key, raises."""
+    expected = FastSCNN().to("meta").state_dict()
+    out = {}
+    for key, value in flat.items():
+        coll, *mod, leaf = key.split("/")
+        if (coll, leaf) not in _FLAX_LEAF or not mod:
+            raise KeyError(f"fast_scnn_state_dict_from_flax: unknown key {key!r}")
+        a = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1)
+        name = ".".join(mod + [_FLAX_LEAF[(coll, leaf)]])
+        if name not in expected or tuple(expected[name].shape) != a.shape:
+            raise KeyError(f"fast_scnn_state_dict_from_flax: {key!r} -> {name!r} "
+                           f"{a.shape} does not fit the model")
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    for name, ref in expected.items():
+        if name.endswith("num_batches_tracked"):
+            out[name] = torch.zeros((), dtype=ref.dtype)
+        elif name not in out:
+            raise KeyError(f"fast_scnn_state_dict_from_flax: no value for {name!r}")
+    return out

@@ -1,14 +1,25 @@
-"""Synthetic dataset: a deterministic textured world along an analytic
-trajectory, with exact IMU.
+"""Synthetic datasets: deterministic worlds along an analytic trajectory,
+with exact IMU.
 
-Port of ``okvis2_tpu/pipeline/dataset.py::SyntheticDataset`` (the
-default and the circle trajectory). The world is a field of small
-textured squares ("stars") drawn with the same numpy ``default_rng(seed)``
-calls in the same order as the JAX package, so one seed gives one world. Each frame projects
-the stars into every camera with the port's ``Transformation`` and
-``PinholeCamera`` on the device, then paints them in numpy. Trajectory and
-IMU come from ``utils/synthetic.true_state`` / ``imu_at``, or from
-``utils/synthetic.CircleTrajectory`` with one circle per ``duration``.
+Port of ``okvis2_tpu/pipeline/dataset.py::SyntheticDataset`` and
+``TexturedWorldDataset`` (the default and the circle trajectory). Each
+world is drawn with the same numpy ``default_rng`` calls in the same order
+as the JAX package, so one seed gives one world.
+
+- ``SyntheticDataset``: a field of small textured squares ("stars"). Each
+  frame projects the stars into every camera with the port's
+  ``Transformation`` and ``PinholeCamera`` on the device, then paints them
+  in numpy.
+- ``TexturedWorldDataset``: a room of noise-textured planes with a
+  featureless "sky" ceiling and floating occluder quads, one of them a
+  dark "person", rendered on the device per pixel by ray-plane
+  intersection with a z-buffer, bilinear texture sampling and a per-frame
+  exposure gain; ``render_with_labels`` also gives the per-pixel class map
+  (cityscapes ids, as the CNN gate reads them).
+
+Trajectory and IMU come from ``utils/synthetic.true_state`` / ``imu_at``,
+or from ``utils/synthetic.CircleTrajectory`` with one circle per
+``duration``.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import torch
 from torch.func import vmap
 
 from okvis2_torch import resolve_device
+from okvis2_torch.core import so3
 from okvis2_torch.core.se3 import Transformation
 from okvis2_torch.utils import synthetic
 
@@ -121,3 +133,168 @@ class SyntheticDataset:
     def ground_truth(self, t: float) -> np.ndarray:
         T_gt, _ = self.syn.true_state(t, device=self.device)
         return torch.cat([T_gt.r, T_gt.q]).cpu().numpy()
+
+
+def _upsample_bilinear(g: np.ndarray, T: int) -> np.ndarray:
+    """Separable bilinear upsample of a square grid to T x T (numpy)."""
+    o = g.shape[0]
+    x = np.linspace(0.0, o - 1.0, T)
+    x0 = np.floor(x).astype(int)
+    x1 = np.minimum(x0 + 1, o - 1)
+    fx = (x - x0).astype(np.float32)
+    rows = g[x0] * (1 - fx)[:, None] + g[x1] * fx[:, None]
+    return rows[:, x0] * (1 - fx)[None, :] + rows[:, x1] * fx[None, :]
+
+
+def _noise_texture(rng, T: int = 512, octaves=(4, 8, 16, 32, 64, 128),
+                   amp_decay: float = 0.55) -> np.ndarray:
+    """Multi-octave value-noise texture in [0.1, 0.95]: features from
+    coarse blobs down to fine grain."""
+    img = np.zeros((T, T), np.float32)
+    amp = 1.0
+    for o in octaves:
+        img += amp * _upsample_bilinear(rng.standard_normal((o, o)).astype(np.float32), T)
+        amp *= amp_decay
+    lo, hi = img.min(), img.max()
+    img = (img - lo) / max(hi - lo, 1e-9)
+    return 0.1 + 0.85 * img
+
+
+def render_textured(cam_rays, T_WS7, T_SC7, p0, eu, ev, tex, gain):
+    """One camera's image of the planes: ``cam_rays`` [HW,3] unit rays in
+    the camera frame, poses [7], planes (corner ``p0``, edges ``eu``,
+    ``ev``: [P,3]), textures [P,T,T], exposure ``gain`` (0-d). Returns
+    (image [HW] in [0,1], the index of the plane hit [HW], -1 for none)."""
+    R_WS = so3.quat_to_matrix(T_WS7[3:7])
+    R_WC = R_WS @ so3.quat_to_matrix(T_SC7[3:7])
+    o_W = T_WS7[:3] + R_WS @ T_SC7[:3]
+    d = cam_rays @ R_WC.T  # [HW,3]
+    n = torch.linalg.cross(eu, ev)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)  # [P,3]
+    denom = d @ n.T  # [HW,P]
+    tnum = torch.sum((p0 - o_W[None, :]) * n, dim=-1)  # [P]
+    tt = tnum[None, :] / torch.where(denom.abs() < 1e-9, torch.full_like(denom, torch.inf),
+                                     denom)
+    X = o_W[None, None, :] + tt[..., None] * d[:, None, :]
+    rel = X - p0[None, :, :]
+    uu = torch.sum(rel * eu[None], -1) / torch.sum(eu * eu, -1)[None]
+    vv = torch.sum(rel * ev[None], -1) / torch.sum(ev * ev, -1)[None]
+    ok = (tt > 0.2) & (uu >= 0) & (uu <= 1) & (vv >= 0) & (vv <= 1)
+    tt = torch.where(ok, tt, torch.full_like(tt, 1e9))
+    k = torch.argmin(tt, dim=1)  # [HW] z-buffer, first nearest
+    ar = torch.arange(tt.shape[0], device=tt.device)
+    hit = tt[ar, k] < 1e8
+    Tsz = tex.shape[1]
+    px = uu[ar, k].clamp(0, 1) * (Tsz - 1)
+    py = vv[ar, k].clamp(0, 1) * (Tsz - 1)
+    x0 = torch.floor(px).long()
+    y0 = torch.floor(py).long()
+    x1 = torch.clamp(x0 + 1, max=Tsz - 1)
+    y1 = torch.clamp(y0 + 1, max=Tsz - 1)
+    fx, fy = px - x0, py - y0
+    val = (tex[k, y0, x0] * (1 - fx) * (1 - fy) + tex[k, y0, x1] * fx * (1 - fy)
+           + tex[k, y1, x0] * (1 - fx) * fy + tex[k, y1, x1] * fx * fy)
+    img = torch.where(hit, val, torch.zeros_like(val))
+    return torch.clamp(img * gain, 0.0, 1.0), torch.where(hit, k, torch.full_like(k, -1))
+
+
+class TexturedWorldDataset(SyntheticDataset):
+    """A room of noise-textured planes plus floating occluder quads,
+    rendered by ray-plane intersection with a z-buffer (true occlusion) and
+    a per-frame exposure gain (auto-exposure or lighting change), in
+    float32 on the dataset's device. ``render_with_labels`` also returns
+    the per-pixel class map: -1 no hit, 0 background, 10 the "sky"
+    ceiling, 11 the "person" occluder (the cityscapes ids of the reference's
+    fast-scnn gate, okvis_cv/src/Frame.cpp:46-147)."""
+
+    CLASS_BACKGROUND, CLASS_SKY, CLASS_PERSON = 0, 10, 11
+
+    def __init__(self, cameras, extrinsics, imu_params, duration: float = 10.0,
+                 frame_rate: float = 10.0, imu_rate: float = 200.0, seed: int = 0,
+                 imu_noise: float = 0.0, trajectory: str = "default", tex_size: int = 512,
+                 exposure_amp: float = 0.15, sky_ceiling: bool = True, n_occluders: int = 3,
+                 device=None):
+        super().__init__(cameras, extrinsics, imu_params, n_stars=1, duration=duration,
+                         frame_rate=frame_rate, imu_rate=imu_rate, seed=seed,
+                         imu_noise=imu_noise, trajectory=trajectory, device=device)
+        rng = np.random.default_rng(seed + 7)
+        self.exposure_amp = exposure_amp
+        # the room encloses the canonical trajectories (the stars' box
+        # x[-6,10], y[-6,6], z[2,12]): 5 walls, a ceiling, occluders
+        bg = self.CLASS_BACKGROUND
+        planes = [
+            ([-6, -6, 12], [16, 0, 0], [0, 12, 0], bg),  # back wall z=12
+            ([-6, -6, -4], [0, 12, 0], [16, 0, 0], bg),  # front wall z=-4
+            ([-6, -6, -4], [0, 0, 16], [0, 12, 0], bg),  # left wall x=-6
+            ([10, -6, -4], [0, 12, 0], [0, 0, 16], bg),  # right wall x=10
+            ([-6, 6, -4], [16, 0, 0], [0, 0, 16], bg),  # floor y=+6
+            ([-6, -6, -4], [0, 0, 16], [16, 0, 0],
+             self.CLASS_SKY if sky_ceiling else bg),  # ceiling y=-6
+        ]
+        for k in range(n_occluders):
+            c = np.array([rng.uniform(-3, 6), rng.uniform(-3, 3), rng.uniform(4.0, 8.0)])
+            w, h = rng.uniform(0.8, 2.0), rng.uniform(1.2, 2.6)
+            ang = rng.uniform(0, 2 * np.pi)
+            u = np.array([np.cos(ang), np.sin(ang), 0.0]) * w
+            v = np.array([0.0, 1.0, 0.0]) * h  # upright quad
+            planes.append((c - u / 2 - v / 2, u, v, self.CLASS_PERSON if k == 0 else bg))
+        self.plane_p0, self.plane_eu, self.plane_ev = (
+            np.asarray([p[i] for p in planes], np.float32) for i in range(3))
+        self.plane_class = np.asarray([p[3] for p in planes], np.int32)
+        P = len(planes)
+        self.textures = np.stack([_noise_texture(rng, tex_size) for _ in range(P)])
+        if sky_ceiling:
+            # featureless bright "sky": a faint vertical gradient only
+            g = np.linspace(0.92, 1.0, tex_size, dtype=np.float32)
+            self.textures[5] = np.broadcast_to(g[:, None], (tex_size, tex_size)).copy()
+        # darker "person" occluder (class contrast for the CNN)
+        self.textures[6 % P] = 0.12 + 0.25 * self.textures[6 % P]
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._planes_dev = [torch.as_tensor(a, **f32) for a in
+                            (self.plane_p0, self.plane_eu, self.plane_ev, self.textures)]
+        self._T_SC7 = [torch.cat([T.r, T.q]).to(**f32) for T in self._T_SC]
+        self._rays = {}
+        self._frame_i = 0
+
+    def _cam_rays(self, ci: int) -> torch.Tensor:
+        """Unit rays through the pixel centres of camera ``ci`` [HW,3]
+        (float32), back-projected in the camera's dtype."""
+        if ci not in self._rays:
+            cam = self.cameras[ci]
+            u, v = np.meshgrid(np.arange(cam.width, dtype=np.float32) + 0.5,
+                               np.arange(cam.height, dtype=np.float32) + 0.5)
+            uv = torch.as_tensor(np.stack([u.ravel(), v.ravel()], -1), dtype=cam.focal.dtype,
+                                 device=self.device)
+            self._rays[ci] = cam.back_project(uv).to(torch.float32)
+        return self._rays[ci]
+
+    def _gain_at(self, t: float) -> float:
+        return float(1.0 + self.exposure_amp * np.sin(0.9 * t + 0.7))
+
+    def _render_all(self, T_WS):
+        """[(image [H,W] float32, plane index [H,W] int32)] per camera; the
+        exposure gain follows the frame clock (one tick per call)."""
+        i = self._frame_i
+        self._frame_i = i + 1
+        gain = torch.tensor(self._gain_at(i / self.frame_rate), dtype=torch.float32,
+                            device=self.device)
+        T7 = torch.as_tensor(np.asarray(T_WS, np.float32), device=self.device)
+        out = []
+        for ci, cam in enumerate(self.cameras):
+            img, lab = render_textured(self._cam_rays(ci), T7, self._T_SC7[ci],
+                                       *self._planes_dev, gain)
+            out.append((img.reshape(cam.height, cam.width).cpu().numpy(),
+                        lab.reshape(cam.height, cam.width).to(torch.int32).cpu().numpy()))
+        return out
+
+    def render(self, T_WS) -> List[np.ndarray]:
+        return [im for im, _ in self._render_all(T_WS)]
+
+    def render_with_labels(self, T_WS):
+        """[(image [H,W] float32, class map [H,W] int32)] per camera."""
+        return [(im, np.where(lab >= 0, self.plane_class[np.maximum(lab, 0)], -1))
+                for im, lab in self._render_all(T_WS)]
+
+    def stream(self) -> Iterator[tuple]:
+        self._frame_i = 0  # the exposure follows the frame clock
+        yield from super().stream()

@@ -5,10 +5,9 @@ doFinalBa, reference okvis_ceres/src/ViSlamBackend.cpp:1759-1892): every
 pose-graph edge of marginalisation gives its stored reprojection
 observations back (TwoPoseGraphError::convertToReprojectionErrors), every
 state is unfrozen, and the whole session is solved at once by the window
-solver on the estimator's device, in its dtype.
-
-Left out: the landmark-sharded solve over several devices (the ``mesh``
-argument, ROADMAP A.14); ``mesh`` other than None raises.
+solver on the estimator's device, in its dtype. With a ``mesh``
+(``parallel.make_mesh``), the solve is landmark-sharded over the mesh's
+process group (``parallel/sharded_ba.py``) on each rank's device.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import numpy as np
 import torch
 
 from okvis2_torch.graph.estimator import Estimator
+from okvis2_torch.parallel.sharded_ba import shard_problem_by_landmark, solve_full_graph_sharded
 from okvis2_torch.solver.gauss_newton import _reproj_residuals, solve_window
 from okvis2_torch.solver.packed_solve import problem_to_device
 from okvis2_torch.solver.window_problem import SolverConfig, WindowProblem
@@ -142,16 +142,23 @@ def do_final_ba(estimator: Estimator, iterations: int = 30, mesh=None, max_state
                 max_landmarks: int = 8192, max_obs: int = 65536) -> dict:
     """Expand the marginalisation edges, pack, solve, write back. Returns
     the restored observation count, the packed state and landmark counts
-    and ``final_ba_diagnostics``. ``max_states`` = 0 grows the state
-    capacity with the session."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "okvis2_torch: the landmark-sharded final BA is not ported yet (ROADMAP A.14)")
+    and, without ``mesh``, ``final_ba_diagnostics``. ``max_states`` = 0
+    grows the state capacity with the session.
+
+    With ``mesh`` the call is SPMD: every rank of the mesh calls it with an
+    estimator that holds the same session; the pack is sharded by landmark
+    (``shard_problem_by_landmark``, which keeps the landmark order), solved
+    over the group, and every rank writes back the same result."""
     n_restored = convert_edges_to_observations(estimator)
     prob, ids, slot_of, lm_ids = pack_full_ba_problem(estimator, max_states, max_landmarks,
                                                       max_obs)
-    solved, _stats = solve_window(prob, estimator.cameras, estimator.imu_params,
-                                  SolverConfig(max_iterations=iterations))
+    cfg = SolverConfig(max_iterations=iterations)
+    if mesh is not None:
+        solved, _stats = solve_full_graph_sharded(
+            shard_problem_by_landmark(prob, mesh.size), estimator.cameras,
+            estimator.imu_params, mesh, cfg, n_iterations=iterations)
+    else:
+        solved, _stats = solve_window(prob, estimator.cameras, estimator.imu_params, cfg)
     S = solved.S
     flat = torch.cat([solved.pose.reshape(-1), solved.speed_bias.reshape(-1),
                       solved.landmarks[:len(lm_ids)].reshape(-1)]).cpu().numpy()
@@ -165,7 +172,8 @@ def do_final_ba(estimator: Estimator, iterations: int = 30, mesh=None, max_state
         estimator.landmarks[lid].hp_W = lms[i]
     estimator._pre_cache.clear()
     info = {"restored_observations": n_restored, "states": len(ids), "landmarks": len(lm_ids)}
-    info.update(final_ba_diagnostics(solved, estimator.cameras, pose, sb, slot_of))
+    if mesh is None:
+        info.update(final_ba_diagnostics(solved, estimator.cameras, pose, sb, slot_of))
     return info
 
 

@@ -54,10 +54,16 @@ depth-aided landmark initialisation at the next keyframe. ``do_final_ba``
 is the offline final bundle adjustment (``pipeline/final_ba.py``); like
 the JAX package's it does not drain the loop, so call ``finish()`` first.
 
-Not ported here: CNN suppression (``cnn_params``, ROADMAP A.15), the
-sharded final BA (``do_final_ba(mesh=...)``, A.14), the CSV taps and the
-JAX bench's frame capture for its device-loop replay; the first two raise
-``NotImplementedError``.
+CNN suppression (``cnn_params``, ``models/suppression.py``): each
+keyframe's tail segments its images with Fast-SCNN on the device and sets
+the information of landmarks seen on sky or person pixels to 1e-4, after
+keyframe expansion and before place recognition (inline in the
+synchronous loop, one frame deferred in the pipelined one). With ``mesh``
+(``parallel.make_mesh``), ``do_final_ba`` runs the landmark-sharded solve
+over the mesh's process group; every rank calls it on the same session.
+
+Not ported here: the CSV taps and the JAX bench's frame capture for its
+device-loop replay.
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ from okvis2_torch import resolve_device
 from okvis2_torch.graph.estimator import Estimator, EstimatorConfig
 from okvis2_torch.imu.preintegration import ImuParameters
 from okvis2_torch.core import se3_np
+from okvis2_torch.models import suppression
 from okvis2_torch.pipeline.component_io import load_component, save_component
 from okvis2_torch.pipeline.final_ba import do_final_ba
 from okvis2_torch.pipeline.frontend_pipeline import Frontend, FrontendConfig
@@ -118,9 +125,6 @@ class SlamSystem:
         ransac_sampler=None,
         loop_ransac_sampler=None,
     ):
-        if cnn_params is not None:
-            raise NotImplementedError(
-                "okvis2_torch: CNN suppression is not ported yet (ROADMAP A.15)")
         self.device = resolve_device(device)
         self.pipelined = pipelined
         # in-flight frames of the pipelined loop, oldest first: dispatched,
@@ -143,6 +147,9 @@ class SlamSystem:
             self.loop_backend = LoopClosureBackend(
                 cameras, extrinsics, loop_closure_config or LoopClosureConfig(),
                 device=self.device, sampler=loop_ransac_sampler)
+        self.cnn: Optional[suppression.CnnSuppressor] = None
+        if cnn_params is not None:
+            self.cnn = suppression.CnnSuppressor(cnn_params, device=self.device)
         self._imu_queue: Deque[Tuple[float, np.ndarray, np.ndarray]] = collections.deque()
         self._image_queue: Deque[Tuple[float, List[np.ndarray]]] = collections.deque()
         self._last_frame_t: Optional[float] = None
@@ -355,13 +362,17 @@ class SlamSystem:
     def _keyframe_tail(self, sid, frames, images):
         """Host keyframe work after the descriptor fetch: depth-aided
         initialisation, frontier expansion (expandKeyframe,
-        ViSlamBackend.cpp:357-406), place recognition (Frontend.cpp:674-899)
+        ViSlamBackend.cpp:357-406), CNN sky/person suppression
+        (Frontend.cpp:969-1011), place recognition (Frontend.cpp:674-899)
         and relocalisation against loaded maps. Returns the detected loop
         keyframe id, or None."""
         est = self.estimator
         if self._latest_depth is not None:
             self._init_landmarks_from_depth(frames, sid)
         est.expand_keyframe(sid)
+        if self.cnn is not None:
+            with SwitchableTimer("2.07 cnn suppression"):
+                self.cnn.suppress(est, frames, sid, images)
         loop_old_id = None
         if self.loop_backend is not None:
             with SwitchableTimer("2.06 place recognition"):
@@ -636,5 +647,6 @@ class SlamSystem:
 
     def do_final_ba(self, iterations: int = 30, mesh=None) -> dict:
         """The offline final bundle adjustment (doFinalBa) on the estimator's
-        device; ``mesh`` (the sharded solve, ROADMAP A.14) must be None."""
+        device, or landmark-sharded over ``mesh`` (``parallel.make_mesh``;
+        SPMD: every rank calls it on the same session)."""
         return do_final_ba(self.estimator, iterations, mesh)

@@ -1,8 +1,8 @@
 """Run the VIO loop on the synthetic dataset.
 
-Port of ``okvis2_tpu/pipeline/synthetic_run.py`` (star dataset, default
-or circle trajectory, synchronous or pipelined loop, optional loop
-closure): renders stereo frames along the analytic trajectory, feeds
+Port of ``okvis2_tpu/pipeline/synthetic_run.py`` (the star field or the
+textured world, default or circle trajectory, synchronous or pipelined
+loop, optional loop closure): renders stereo frames along the analytic trajectory, feeds
 images and exact IMU through ``SlamSystem`` and computes the aligned ATE
 against ground truth (the reference's validation analogue:
 okvis_app_synchronous on EuRoC, README.md:179-206).
@@ -23,7 +23,7 @@ from okvis2_torch.core.se3 import Transformation
 from okvis2_torch.frontend.detection import DetectionConfig
 from okvis2_torch.graph.estimator import EstimatorConfig
 from okvis2_torch.imu.preintegration import ImuParameters
-from okvis2_torch.pipeline.dataset import SyntheticDataset
+from okvis2_torch.pipeline.dataset import SyntheticDataset, TexturedWorldDataset
 from okvis2_torch.pipeline.frontend_pipeline import FrontendConfig
 from okvis2_torch.pipeline.full_graph import LoopClosureConfig
 from okvis2_torch.pipeline.slam import SlamSystem
@@ -60,6 +60,7 @@ def run_synthetic_vio(
     trajectory: str = "default",
     do_loop_closures: bool = False,
     loop_closure_config: Optional[LoopClosureConfig] = None,
+    dataset: str = "stars",
 ):
     """Returns a dict with the aligned ATE, the trajectories, per-frame
     wall times, the frames whose host work closed a loop ("lc_frames") and
@@ -67,8 +68,11 @@ def run_synthetic_vio(
     ``ransac_sampler`` is the frontend's per-frame RANSAC hook.
     ``force_min_pending`` keeps at least that many frames in flight in the
     pipelined loop (a test hook: it makes the multi-set device append
-    happen on a fixed schedule, whatever the solves' timing). Runs on
-    ``device`` (None: the CUDA card; raises without one)."""
+    happen on a fixed schedule, whatever the solves' timing).
+    ``dataset="textured"`` renders the textured world
+    (``TexturedWorldDataset``: textured surfaces, true occlusion, exposure
+    changes) in place of the star field. Runs on ``device`` (None: the
+    CUDA card; raises without one)."""
     dev = resolve_device(device)
     cams, exts = small_rig(width, height, dtype=dtype, device=dev)
     imu_params = ImuParameters.create(g=9.81, device=dev)
@@ -80,8 +84,12 @@ def run_synthetic_vio(
                       do_loop_closures=do_loop_closures, loop_closure_config=loop_closure_config,
                       pipelined=pipelined, device=dev, ransac_sampler=ransac_sampler)
     slam._force_min_pending = force_min_pending
-    ds = SyntheticDataset(cams, exts, imu_params, duration=duration, frame_rate=frame_rate,
-                          n_stars=n_stars, trajectory=trajectory, device=dev)
+    if dataset == "textured":
+        ds = TexturedWorldDataset(cams, exts, imu_params, duration=duration,
+                                  frame_rate=frame_rate, trajectory=trajectory, device=dev)
+    else:
+        ds = SyntheticDataset(cams, exts, imu_params, duration=duration, frame_rate=frame_rate,
+                              n_stars=n_stars, trajectory=trajectory, device=dev)
 
     gt_traj = []
     t_start = time.time()

@@ -16,11 +16,22 @@ Port of ``okvis2_tpu/solver/gauss_newton.py``:
 - the LM loop runs on the host, one small readback per iteration, with
   the reference's exit rules (accept rule, lambda up/down and clip, stall
   counter, step tolerance), so it takes the same number of iterations.
+
+With a ``torch.distributed`` process ``group`` (the landmark-sharded
+solve, ``parallel/sharded_ba.py``), each rank holds a block of landmarks
+with their observations and a replica of everything else. The
+observation terms are summed over the group where the JAX package psums
+over its mesh axis: the cost's observation and landmark-prior parts, the
+normal equations before the replicated factors are added, and the Schur
+complement; each is one all-reduce of the concatenated tensors. The LM
+loop's flags are broadcast from the group's first rank, so every rank
+leaves the loop together. With ``group=None`` nothing of this runs.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.func import jacfwd, vmap
 
@@ -79,6 +90,30 @@ def _obs_mask(problem: WindowProblem) -> torch.Tensor:
         & problem.state_mask[problem.obs_state]
         & problem.lm_mask[problem.obs_lm]
     )
+
+
+def _sum_over(group, *tensors):
+    """Each tensor summed over the ranks of ``group``, by one all-reduce of
+    their flat concatenation. Counts its calls in ``_sum_over.calls``."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    _sum_over.calls += 1
+    return [part.reshape(t.shape)
+            for part, t in zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
+
+
+_sum_over.calls = 0
+
+
+def _from_first_rank(group, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the group's first rank holds it (one broadcast, counted in
+    ``_from_first_rank.calls``)."""
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    _from_first_rank.calls += 1
+    return t
+
+
+_from_first_rank.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +178,10 @@ def _other_residuals(problem: WindowProblem, imu_params: ImuParameters):
 
 
 def problem_cost(problem: WindowProblem, cameras, imu_params: ImuParameters,
-                 config: SolverConfig = SolverConfig()) -> torch.Tensor:
-    """Total robustified cost 0.5 * sum(rho(|r|^2)) (0-d tensor)."""
+                 config: SolverConfig = SolverConfig(), group=None) -> torch.Tensor:
+    """Total robustified cost 0.5 * sum(rho(|r|^2)) (0-d tensor). With
+    ``group``, the observation and landmark-prior parts are summed over its
+    ranks (landmark-sharded), the other factors are replicated."""
     r_obs, _ = _reproj_residuals(problem, cameras)
     s = torch.sum(r_obs * r_obs, dim=-1)
     c2 = config.cauchy_scale**2
@@ -154,6 +191,8 @@ def problem_cost(problem: WindowProblem, cameras, imu_params: ImuParameters,
     d_lp = (problem.landmarks[:, :3] - problem.lm_prior[:, :3]) \
         * problem.lm_prior_sqrt[:, None]
     cost_lp = 0.5 * torch.sum(torch.where(m_lp[:, None], d_lp * d_lp, torch.zeros_like(d_lp)))
+    if group is not None:
+        cost_obs, cost_lp = _sum_over(group, cost_obs, cost_lp)
     return (
         cost_obs
         + cost_lp
@@ -236,7 +275,7 @@ def _reproj_val_jac(problem: WindowProblem, cameras):
 
 
 @forward_ad_locked
-def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None):
+def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None, group=None):
     """Build the Schur-reducible normal equations at the current estimate.
 
     Returns (Hxx [D,D], bx [D], Hll [L,3,3], bl [L,3], W_rep, free_x [D]):
@@ -244,6 +283,9 @@ def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None):
         (``tbl`` from ``_build_obs_table``); speed/bias rows are
         structurally zero for vision and never materialised;
       - W_rep = ("dense", W [L,D,3]) on the DENSE path (tbl=None).
+
+    With ``group``, Hxx and bx are summed over its ranks after the
+    observation terms, before the replicated factors are added.
     """
     S, L, NC, O = problem.S, problem.L, problem.NC, problem.O
     dtype, dev = problem.pose.dtype, problem.pose.device
@@ -321,6 +363,9 @@ def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None):
             0, lm, -torch.einsum("oid,oi->od", Jl, r0))
         W = torch.zeros((L, D, 3), dtype=dtype, device=dev).index_add_(
             0, lm, torch.einsum("oid,oie->ode", Jx, Jl))
+
+    if group is not None:
+        Hxx, bx = _sum_over(group, Hxx, bx)
 
     # landmark priors: isotropic diagonal block + rhs
     m_lp = (problem.lm_prior_mask & problem.lm_mask).to(dtype)
@@ -460,10 +505,12 @@ def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None):
     return Hxx, bx, Hll, bl, W_rep, free_x
 
 
-def _schur_solve(Hxx, bx, Hll, bl, W_rep, free_x, lm_mask, lam, config):
+def _schur_solve(Hxx, bx, Hll, bl, W_rep, free_x, lm_mask, lam, config, group=None):
     """Damped Schur-complement solve. Returns (dx [D], dl [L,3]).
 
-    ``lam`` is the LM damping (0-d tensor or float)."""
+    ``lam`` is the LM damping (0-d tensor or float). With ``group``, the
+    landmark blocks are this rank's and the Schur complement is summed over
+    the group's ranks."""
     dtype, dev = Hxx.dtype, Hxx.device
     D = Hxx.shape[0]
     eye3 = torch.eye(3, dtype=dtype, device=dev)
@@ -503,6 +550,8 @@ def _schur_solve(Hxx, bx, Hll, bl, W_rep, free_x, lm_mask, lam, config):
         schur_H = torch.einsum("ldt,let->de", WHinv, W)
         schur_b = torch.einsum("ldt,lt->d", WHinv, bl_m)
 
+    if group is not None:
+        schur_H, schur_b = _sum_over(group, schur_H, schur_b)
     S_red = Hxx - schur_H
     b_red = bx - schur_b
 
@@ -548,6 +597,7 @@ def solve_window(
     cameras,
     imu_params: ImuParameters,
     config: SolverConfig = SolverConfig(),
+    group=None,
 ):
     """LM solve of one window. Returns (problem', stats dict with
     initial_cost, final_cost, lambda (0-d tensors) and iterations (int)).
@@ -555,9 +605,16 @@ def solve_window(
     The reference's device ``while_loop`` is a host loop here: each
     iteration reads back one small flag vector (accept, negligible
     decrease, small step, lambda below the exit bound), and applies the
-    reference's exit rules to it."""
+    reference's exit rules to it.
+
+    With ``group``, ``problem`` holds this rank's landmark block (local
+    landmark indices) and replicas of the rest; every rank of the group
+    calls this together. The flag vector is the group's first rank's, and
+    the stats add "collectives": the all-reduces and broadcasts this solve
+    issued."""
     dtype, dev = problem.pose.dtype, problem.pose.device
-    cost0 = problem_cost(problem, cameras, imu_params, config)
+    n_coll = _sum_over.calls + _from_first_rank.calls
+    cost0 = problem_cost(problem, cameras, imu_params, config, group)
     use_table = problem.L * problem.S * problem.NC <= TABLE_MAX_ENTRIES
     tbl = _build_obs_table(problem) if use_table else None
 
@@ -567,19 +624,25 @@ def solve_window(
     it, stall = 0, 0
     lam_ok = config.initial_lambda < 1e7
     while it < config.max_iterations and stall < 2 and lam_ok:
-        Hxx, bx, Hll, bl, W_rep, free_x = _linearize(prob, cameras, imu_params, config, tbl)
-        dx, dl = _schur_solve(Hxx, bx, Hll, bl, W_rep, free_x, prob.lm_mask, lam, config)
+        Hxx, bx, Hll, bl, W_rep, free_x = _linearize(prob, cameras, imu_params, config, tbl,
+                                                     group)
+        dx, dl = _schur_solve(Hxx, bx, Hll, bl, W_rep, free_x, prob.lm_mask, lam, config, group)
         cand = _apply_deltas(prob, dx, dl)
-        new_cost = problem_cost(cand, cameras, imu_params, config)
+        new_cost = problem_cost(cand, cameras, imu_params, config, group)
         accept_t = new_cost < cost
         lam = torch.where(accept_t, lam * config.lambda_down, lam * config.lambda_up)
         lam = torch.clamp(lam, 1e-12, 1e8)
         rel_dec = (cost - new_cost) / torch.clamp(cost, min=1e-12)
         step_inf = torch.max(torch.abs(dx))
-        accept, small_dec, small_step, lam_ok = torch.stack([
+        flags = torch.stack([
             accept_t, rel_dec < config.min_cost_decrease,
             step_inf < config.step_tolerance, lam < 1e7,
-        ]).tolist()
+        ])
+        if group is not None:
+            # the first rank's flags and damping: no rank leaves alone
+            agreed = _from_first_rank(group, torch.cat([flags.to(dtype), lam.reshape(1)]))
+            flags, lam = agreed[:4] > 0.5, agreed[4]
+        accept, small_dec, small_step, lam_ok = flags.tolist()
         # stall: accepted-but-negligible decreases; rejects grow lambda
         if accept:
             stall = stall + 1 if small_dec else 0
@@ -588,4 +651,6 @@ def solve_window(
             prob, cost = cand, new_cost
         it += 1
     stats = {"initial_cost": cost0, "final_cost": cost, "iterations": it, "lambda": lam}
+    if group is not None:
+        stats["collectives"] = _sum_over.calls + _from_first_rank.calls - n_coll
     return prob, stats

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 and the tracking program and the synchronous and pipelined SLAM loops
 (whose detection runs the Harris kernel) on the card against the same on
-the CPU.
+the CPU; Fast-SCNN and the textured world on the card against the CPU; the
+sharded solve over NCCL at world size 1 against the unsharded one.
 
 A hand-written CUDA kernel has no CPU mode, so every test here is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it also
@@ -767,3 +768,74 @@ def test_depth_init_card_matches_cpu(cuda):
     print(f"depth-aided init, card vs CPU: {ng} landmarks within {d:.3e} m")
     assert d < 1e-5
     np.testing.assert_array_equal(gg, gc)
+
+
+WEIGHTS = "okvis2_tpu/models/weights/fast_scnn_synthetic.npz"
+
+
+def test_fast_scnn_card_matches_cpu(cuda):
+    """Fast-SCNN at 480x752 (padded to 512x768) on the card against the CPU
+    port, float32 with TF32 off: logits within 1e-3 of their largest
+    magnitude, class maps at least 99.9 % equal."""
+    from okvis2_torch.models import fast_scnn as tfs
+    from okvis2_torch.models.scenes import make_scene
+    from okvis2_torch.models.suppression import CnnSuppressor
+
+    img, _ = make_scene(np.random.default_rng(3), 480, 752)
+    x = torch.from_numpy(img[..., 0])
+    got = tfs.image_logits(CnnSuppressor(WEIGHTS, device=cuda).model(), x.to(cuda)).cpu()
+    want = tfs.image_logits(CnnSuppressor(WEIGHTS, device="cpu").model(), x)
+    assert got.shape == want.shape == (19, 480, 752)
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+    assert (got.argmax(0) == want.argmax(0)).double().mean() >= 0.999
+
+
+def test_textured_world_card_matches_cpu(cuda):
+    """The textured world rendered on the card against the CPU, at the
+    bench's 752x480 rig: images within 1e-5, labels equal on at least
+    99.9 % of the pixels."""
+    from okvis2_torch.imu.preintegration import ImuParameters
+    from okvis2_torch.pipeline import dataset as tds
+    from okvis2_torch.pipeline.synthetic_run import small_rig
+
+    out = {}
+    for dev in (cuda, "cpu"):
+        cams, exts = small_rig(752, 480, f=460.0, device=dev)
+        ds = tds.TexturedWorldDataset(cams, exts, ImuParameters.create(g=9.81, device=dev),
+                                      duration=1.0, frame_rate=4.0, device=dev)
+        ds._frame_i = 2
+        out[str(dev)] = ds.render_with_labels(ds.ground_truth(0.5))
+    for (im_c, lab_c), (im_h, lab_h) in zip(out[str(cuda)], out["cpu"]):
+        np.testing.assert_allclose(im_c, im_h, rtol=0, atol=1e-5)
+        assert (lab_c == lab_h).mean() >= 0.999
+        assert (lab_h == 10).any() and (lab_h == 11).any()
+
+
+def test_sharded_solve_nccl_world_size_one(cuda, tmp_path):
+    """solve_full_graph_sharded over NCCL at world size 1 against
+    solve_window on the card, float64: poses within 1e-8 m, the same LM
+    iterations, 4 collectives per iteration."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from okvis2_torch.parallel import make_mesh, shard_problem_by_landmark
+    from okvis2_torch.parallel import solve_full_graph_sharded
+    from okvis2_torch.solver.gauss_newton import solve_window
+    from okvis2_torch.solver.window_problem import SolverConfig
+    from okvis2_torch.utils import synthetic
+
+    problem, cams, imu, _ = synthetic.build_problem(num_states=4, n_landmarks_side=5, device=cuda)
+    problem = synthetic.disturb_problem(problem.replace(
+        pose_frozen=torch.arange(problem.S, device=cuda) == 0))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        solved, stats = solve_full_graph_sharded(shard_problem_by_landmark(problem, 1), cams, imu,
+                                                 make_mesh(1), SolverConfig(), n_iterations=5)
+    finally:
+        dist.destroy_process_group()
+    ref, ref_stats = solve_window(problem, cams, imu, SolverConfig(max_iterations=5))
+    assert stats["iterations"] == ref_stats["iterations"]
+    assert stats["collectives"] == 4 * stats["iterations"] + 2
+    assert (solved.pose[:, :3] - ref.pose[:, :3]).abs().max() < 1e-8

@@ -27,6 +27,8 @@ from okvis2_torch.cameras.pinhole import PinholeCamera
 from okvis2_torch.frontend import descriptor as tdesc
 from okvis2_torch.frontend import detection as tdet
 from okvis2_torch.frontend import matching as tmatch
+from okvis2_torch.models import suppression as tsup
+from okvis2_torch.parallel import dryrun as tdry
 from okvis2_torch.pipeline import dataset as tds
 from okvis2_torch.graph import estimator as test_
 from okvis2_torch.pipeline import frontend_pipeline as tfp
@@ -45,6 +47,7 @@ from okvis2_tpu.solver.window_problem import SolverConfig as JCfg
 from okvis2_tpu.utils import synthetic as jsyn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WEIGHTS = os.path.join(REPO, "okvis2_tpu", "models", "weights", "fast_scnn_synthetic.npz")
 FORBIDDEN = ("jax", "jaxlib", "okvis2_tpu")
 
 
@@ -133,7 +136,10 @@ def test_import_leaves_jax_out():
             "okvis2_torch.solver.packed_solve, okvis2_torch.cameras.ncamera, "
             "okvis2_torch.pipeline.trajectory, okvis2_torch.pipeline.slam, "
             "okvis2_torch.pipeline.synthetic_run, okvis2_torch.pipeline.full_graph, "
-            "okvis2_torch.pipeline.final_ba, okvis2_torch.pipeline.component_io; "
+            "okvis2_torch.pipeline.final_ba, okvis2_torch.pipeline.component_io, "
+            "okvis2_torch.models.fast_scnn, okvis2_torch.models.suppression, "
+            "okvis2_torch.models.scenes, okvis2_torch.parallel.sharded_ba, "
+            "okvis2_torch.parallel.dryrun; "
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True)
@@ -179,6 +185,9 @@ DEVICE_NONE_ENTRY_POINTS = {
     "SlamSystem loop closure": lambda: tslam.SlamSystem(*_rig_args(), do_loop_closures=True),
     "LoopClosureBackend": lambda: tfg.LoopClosureBackend(*_rig_args()[:2]),
     "run_synthetic_vio": lambda: tsr.run_synthetic_vio(duration=0.5),
+    "TexturedWorldDataset": lambda: tds.TexturedWorldDataset((), (), None),
+    "CnnSuppressor": lambda: tsup.CnnSuppressor(WEIGHTS),
+    "dryrun_multichip": lambda: tdry.dryrun_multichip(2),
 }
 
 
@@ -198,16 +207,6 @@ def _rig_args():
     return cams, exts, interop.imu_params_from_numpy(
         {"sigma_g_c": 1.0, "sigma_a_c": 1.0, "sigma_gw_c": 1.0, "sigma_aw_c": 1.0, "g": 9.81},
         device="cpu")
-
-
-@pytest.mark.parametrize("option", ["cnn_params", "final_ba_mesh"])
-def test_unported_options_raise(option):
-    """CNN suppression and the sharded final BA are not ported: asking for
-    them raises, naming the ROADMAP item, instead of being ignored."""
-    kw, item = {"cnn_params": ({"cnn_params": {}}, "A.15"), "final_ba_mesh": ({}, "A.14")}[option]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        s = tslam.SlamSystem(*_rig_args(), device="cpu", **kw)
-        s.do_final_ba(mesh=object())
 
 
 def _frame_associate_args():

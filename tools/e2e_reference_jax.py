@@ -1,4 +1,4 @@
-"""The JAX package's side of chip_smoke.py's phases 8 and 9, on the CPU in
+"""The JAX package's side of chip_smoke.py's phases 8-13, on the CPU in
 float32: the SlamSystem (synchronous, or pipelined) at the bench's EuRoC
 configuration (bench.py:136-160: 752x480 radtan stereo rig, f = 460,
 0.11 m baseline, 512 keypoints, map capacity 1024, a 12-slot window with
@@ -11,7 +11,9 @@ window and the wall time: the numbers that set phase 8's bars.
 
     env JAX_PLATFORMS=cpu python tools/e2e_reference_jax.py \
         [n_frames] [frame_rate] [trajectory] [num_keyframes] [pipelined] \
-        [force_min_pending] [obs_slots] [loop_closures] [exclude_recent]
+        [force_min_pending] [obs_slots] [loop_closures] [exclude_recent] \
+        [final_ba] [second_start] [second_modes] [second_min_pending] \
+        [dataset] [final_ba_shards]
 
 Defaults: 60 frames at 20 Hz on the default trajectory with 5 window
 keyframes, synchronous: the bench's system and frames (phase 8's first
@@ -54,6 +56,24 @@ on, the landmarks loaded and those with descriptors. Phase 11's drive:
 ``40 8 circle 2 0 0 4096 1 2 1 2.5 sync,pipelined 1`` (~4.5 min on the
 CPU: the session ~100 s, its final BA ~40 s, the second sessions ~15 s and
 ~115 s, most of it compiling).
+
+``dataset`` "textured" renders ``TexturedWorldDataset`` (its float images
+in [0, 1] go to the system as they are) and turns CNN suppression on with
+the committed weights (``okvis2_tpu/models/weights/fast_scnn_synthetic.npz``);
+the JSON line then gives the landmarks suppressed at each keyframe (by
+frame), and for each keyframe's images (both cameras) the segmentation's
+pixel accuracy on the sky and person pixels of ``render_with_labels``
+(rendered with the stream's own exposure clock). Phase 12's drives:
+``30 20 default 5 0 0 4096 0 5 0 0 sync 1 textured`` (synchronous) and
+``30 20 default 5 1 1 4096 0 5 0 0 sync 1 textured`` (pipelined, one frame
+kept in flight).
+
+``final_ba_shards`` n > 0 runs the final BA landmark-sharded on an
+n-device virtual CPU mesh (``do_final_ba(mesh=make_mesh(n))``; the tool
+sets ``--xla_force_host_platform_device_count`` before JAX starts) and
+gives its ATE (no reprojection RMS: the sharded path computes no
+diagnostics). Phase 13's reference: ``40 8 circle 2 0 0 4096 1 2 1 0 sync 1
+stars 2``.
 """
 
 import json
@@ -62,6 +82,8 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "okvis2_tpu", "models", "weights", "fast_scnn_synthetic.npz")
 
 
 def main(argv):
@@ -78,6 +100,11 @@ def main(argv):
     second_start = float(argv[11]) if len(argv) > 11 else 0.0
     second_modes = argv[12].split(",") if len(argv) > 12 else ["sync"]
     second_min_pending = int(argv[13]) if len(argv) > 13 else 1
+    dataset = argv[14] if len(argv) > 14 else "stars"
+    final_ba_shards = int(argv[15]) if len(argv) > 15 else 0
+    if final_ba_shards:
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_"
+                                   f"platform_device_count={final_ba_shards}").strip()
     import numpy as np
 
     from okvis2_tpu.cameras.distortion import RadialTangentialDistortion
@@ -86,7 +113,7 @@ def main(argv):
     from okvis2_tpu.frontend.detection import DetectionConfig
     from okvis2_tpu.graph.estimator import EstimatorConfig
     from okvis2_tpu.imu.preintegration import ImuParameters
-    from okvis2_tpu.pipeline.dataset import SyntheticDataset
+    from okvis2_tpu.pipeline.dataset import SyntheticDataset, TexturedWorldDataset
     from okvis2_tpu.pipeline.frontend_pipeline import FrontendConfig
     from okvis2_tpu.pipeline.full_graph import LoopClosureConfig
     from okvis2_tpu.pipeline.slam import SlamSystem
@@ -101,8 +128,22 @@ def main(argv):
     exts = [Transformation(r=jnp.asarray(r, jnp.float32), q=jnp.asarray([0, 0, 0, 1.0], jnp.float32))
             for r in ([0.0, 0.0, 0.0], [0.11, 0.0, 0.0])]
     imu = ImuParameters.create(g=9.81)
-    ds = SyntheticDataset(cams, exts, imu, n_stars=2500, duration=n_frames / rate,
-                          frame_rate=rate, imu_rate=200.0, seed=0, trajectory=trajectory)
+    textured = dataset == "textured"
+    if textured:
+        ds = TexturedWorldDataset(cams, exts, imu, duration=n_frames / rate, frame_rate=rate,
+                                  imu_rate=200.0, seed=0, trajectory=trajectory)
+        labels = []  # each frame's class maps, rendered with the stream's clock
+        render_labelled = ds.render_with_labels
+
+        def render(T_WS):
+            pairs = render_labelled(T_WS)
+            labels.append([lab for _, lab in pairs])
+            return [im for im, _ in pairs]
+
+        ds.render = render
+    else:
+        ds = SyntheticDataset(cams, exts, imu, n_stars=2500, duration=n_frames / rate,
+                              frame_rate=rate, imu_rate=200.0, seed=0, trajectory=trajectory)
     est_cfg = EstimatorConfig(window_slots=12, landmark_slots=512, obs_slots=obs_slots,
                               imu_seg_capacity=64, enforce_realtime=True,
                               realtime_time_limit=1.0 / 200.0, num_keyframes=num_keyframes)
@@ -110,8 +151,21 @@ def main(argv):
                             map_match_capacity=1024)
     slam = SlamSystem(cams, exts, imu, est_cfg, fe_cfg, pipelined=pipelined,
                       do_loop_closures=loop_closures,
-                      loop_closure_config=LoopClosureConfig(exclude_recent=exclude_recent))
+                      loop_closure_config=LoopClosureConfig(exclude_recent=exclude_recent),
+                      cnn_params=WEIGHTS if textured else None)
     lb = slam.loop_backend
+    suppressed = []  # (sid, landmarks suppressed), per keyframe
+    kf_images = {}
+    if textured:
+        suppress = slam.cnn.suppress
+
+        def recorded(est_, frames, sid, images):
+            n = suppress(est_, frames, sid, images)
+            suppressed.append((sid, n))
+            kf_images[sid] = [np.asarray(im) for im in images]
+            return n
+
+        slam.cnn.suppress = recorded
     n_queries = [0]
     if lb is not None:
         detect = lb.detect_loop
@@ -133,8 +187,9 @@ def main(argv):
             continue
         _, t, images, pose = ev
         gt.append((t, pose))
-        slam.add_images(t, [(np.clip(im, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-                            for im in images])
+        slam.add_images(t, images if textured else
+                        [(np.clip(im, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+                         for im in images])
         t0 = time.perf_counter()
         lc0 = lb.num_loop_closures if lb is not None else 0
         slam.process_frame()
@@ -166,13 +221,21 @@ def main(argv):
         "last_verify_info": lb.last_verify_info,
     }
     extra = {}
+    if textured:
+        extra["cnn"] = cnn_record(slam, est, suppressed, kf_images, labels)
     if final_ba:
         t0 = time.perf_counter()
-        info = slam.do_final_ba()
+        mesh = None
+        if final_ba_shards:
+            from okvis2_tpu.parallel.sharded_ba import make_mesh
+
+            mesh = make_mesh(final_ba_shards)
+        info = slam.do_final_ba(mesh=mesh)
         extra["final_ba"] = {
+            "shards": final_ba_shards,
             "ate_rmse_m": ate_rmse(est.trajectory(), gt, align=True),
             "restored_observations": info["restored_observations"], "states": info["states"],
-            "landmarks": info["landmarks"], "reproj_rms_px": info["reproj_rms_px"],
+            "landmarks": info["landmarks"], "reproj_rms_px": info.get("reproj_rms_px"),
             "loop_edges": [[e.id_i, e.id_j] for e in est.pose_graph_edges if e.kind == "loop"],
             "wall_s": time.perf_counter() - t0}
         print(json.dumps({"final_ba": extra["final_ba"]}), flush=True)
@@ -202,6 +265,28 @@ def main(argv):
         "edges": [[e.id_i, e.id_j] for e in est.pose_graph_edges], "max_window": max_window,
         **loop, **extra, "wall_s": time.perf_counter() - t_start,
     }))
+
+
+def cnn_record(slam, est, suppressed, kf_images, labels):
+    """The suppression per keyframe and the segmentation's pixel accuracy on
+    the keyframes' sky and person pixels."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from okvis2_tpu.models.fast_scnn import PERSON_CLASS, SKY_CLASS, segment_image
+
+    hits = {SKY_CLASS: [0, 0], PERSON_CLASS: [0, 0]}
+    for sid, images in kf_images.items():
+        for img, lab in zip(images, labels[est.state_order.index(sid)]):
+            seg = np.asarray(segment_image(slam.cnn.params, jnp.asarray(img)))
+            for c, h in hits.items():
+                h[0] += int((seg[lab == c] == c).sum())
+                h[1] += int((lab == c).sum())
+    return {"suppressed_per_keyframe": [[est.state_order.index(s), n] for s, n in suppressed],
+            "num_suppressed": slam.cnn.num_suppressed,
+            "pixel_accuracy": {"sky": hits[SKY_CLASS][0] / max(hits[SKY_CLASS][1], 1),
+                               "person": hits[PERSON_CLASS][0] / max(hits[PERSON_CLASS][1], 1)},
+            "labelled_pixels": {"sky": hits[SKY_CLASS][1], "person": hits[PERSON_CLASS][1]}}
 
 
 def second_session(slam, ds, path, start):
