@@ -87,6 +87,13 @@ hand-written kernel against its plain PyTorch version:
                over gloo (two spawned ranks on the one card), against the
                unsharded solve in float64; ms, kernels and collectives per
                LM iteration
+ 14. app       the dataset app (okvis2_torch.apps.app_synchronous.main) at
+               configs/euroc.yaml on two EuRoC folders that the port's
+               DatasetWriter writes and its reader reads back bit for bit:
+               the synchronous app with the final BA and the map, held to
+               the JAX app on the same folder (ATE, keyframes, final BA)
+               and the map reloaded; the default pipelined app at phase
+               9's rule; launch counts zeroed just before each app run
 
 Every check raises on failure, so any failing phase exits non-zero. The
 line before the last is the kernels' JSON record; the last line is
@@ -94,6 +101,7 @@ line before the last is the kernels' JSON record; the last line is
 before printing any result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -318,6 +326,54 @@ CNN_CLASS_AGREE, CNN_LOGIT_TOL, CNN_ACC_SLACK = 0.999, 1e-3, 0.01
 # sync 1 stars 2; 2-device virtual CPU mesh, float32): ATE 4.764 mm (its
 # unsharded final BA: 4.765 mm).
 FBA_ITERATIONS = 30
+# phase 14: the dataset app (okvis2_torch.apps.app_synchronous, the user's
+# entry point: YAML config -> EuRoC folder -> SlamSystem -> trajectory CSV)
+# at configs/euroc.yaml: two 752x480 radtan cameras (k1 -0.28) with the
+# ASL extrinsics, 700 keypoints, loop closure on, enforce_realtime off (up
+# to 10 LM iterations per frame), the app's EstimatorConfig defaults
+# (512 landmark slots: the frontend keeps up to 700 keypoints per camera,
+# so the window's landmarks are truncated to the best 512 as in the JAX
+# app; the truncations are logged). Two folders (write_app_folder):
+# SyntheticDataset with the config's cameras, T_SC and IMU parameters, 2500
+# stars, seed 0, APP_FRAMES frames at 20 Hz and 200 Hz IMU as uint8 images,
+# written by DatasetWriter to a temporary directory and rendered on the
+# host in float64, so that the smoke run and the JAX reference write the
+# same pixels (their digests are held equal). The synchronous app reads
+# the first APP_FRAMES frames of an APP_PERIOD s circle (0.19 m a frame:
+# the window keyframes four times; on the default trajectory it keyframes
+# only frame 0); the pipelined app the default trajectory (on the circle
+# the JAX pipelined loop at the card's schedule drifted 1.7 m). The JAX app
+# on the same folders (tools/e2e_reference_jax.py app, CPU, float32):
+APP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "euroc.yaml")
+APP_FRAMES, APP_PIPELINED_FRAMES, APP_RATE, APP_WARMUP = 40, 30, 20.0, 5
+APP_PERIOD = 2.5
+# - synchronous (--sync --final-ba --save-map): ATE 19.828 mm, keyframes at
+#   frames 0, 12, 24, 37, 1775 landmarks, no loop closure (place
+#   recognition excludes the 5 most recent keyframes); truncated: the
+#   window's landmarks 28 times, frame-to-frame rows 2; the final BA on 6
+#   states and 1563 landmarks, reprojection RMS 3.515 px; the map holds 1775
+#   landmarks;
+# - pipelined, one frame kept in flight (the card's schedule), the first 30
+#   frames: ATE 16.422 mm, keyframes at frames 0, 1, 2, in 3 of 5 runs; the
+#   other two, run beside other work on the CPU, kept other frames (0, 1,
+#   2, 13, 15: 82.059 mm; 0, 1, 2, 14: 182.579 mm): the JAX loop's lagged
+#   decisions follow its threads' timing. The bar is the median run's.
+# Held: the folders' digests, the CSV's rows (one per state), the ATE at
+# phase 8's rule (phase 9's for the pipelined app), the synchronous
+# keyframes, the final BA's states and its RMS at 1.5x the JAX app's (phase
+# 11's rule), one Harris launch per frame per octave, the map loaded into a
+# fresh SlamSystem with the session's landmark count, and the pipelined
+# app's schedule.
+APP_JAX = {
+    "sync": dict(ate_m=0.01982753423110339, keyframes=[0, 12, 24, 37], final_ba_states=6,
+                 final_ba_rms_px=3.5146372318267822,
+                 folder_digest="7162b6adfbc6a6308eb42be65d63a88dd095731b0a688c83c410f16897cb2aea"),
+    "pipelined": dict(ate_m=0.016421931895869393, keyframes=[0, 1, 2], min_pending=1,
+                      folder_digest="a39a610a32bcf6ada31a301527ee12f5fb089aecd45d7125fad732d212f99d46"),
+}
+# the pipelined app runs at the loop's own lag: on the card two frames in
+# flight after each dispatch from the third frame on (phase 9's schedule)
+APP_IN_FLIGHT = 2
 
 
 def log(msg):
@@ -1868,6 +1924,270 @@ def phase_sharded_final_ba(card, pack):
     assert np.isfinite(p32).all() and np.isfinite(l32).all()
 
 
+@contextlib.contextmanager
+def recorded_app_system(slam_mod, est_mod, sync=lambda: None, min_pending=None):
+    """While open, ``slam_mod.SlamSystem`` (the port's, or the JAX package's
+    in tools/e2e_reference_jax.py) is a subclass that records its keyframes
+    (by state id), the frames in flight after each ``process_frame``, the
+    final BA's info and ms (``sync`` waits for the device around it), and
+    the capacity truncations (``est_mod._warn_counts``) of the run;
+    ``min_pending`` sets the pipelined loop's ``_force_min_pending``."""
+    base = slam_mod.SlamSystem
+    rec = {"systems": [], "kf_sids": [], "in_flight": [], "final_ba": None,
+           "final_ba_ms": None}
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if min_pending is not None:
+                self._force_min_pending = min_pending
+            self.set_optimised_graph_callback(
+                lambda t, sid, pose, tr: rec["kf_sids"].append(sid) if tr.is_keyframe else None)
+            rec["systems"].append(self)
+
+        def process_frame(self):
+            out = super().process_frame()
+            rec["in_flight"].append(len(self._pending_frames))
+            return out
+
+        def do_final_ba(self, *a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            rec["final_ba"] = super().do_final_ba(*a, **kw)
+            sync()
+            rec["final_ba_ms"] = (time.perf_counter() - t0) * 1e3
+            return rec["final_ba"]
+
+    warn0 = dict(est_mod._warn_counts)
+    slam_mod.SlamSystem = Recorded
+    try:
+        yield rec
+    finally:
+        slam_mod.SlamSystem = base
+        rec["truncations"] = {k: v - warn0.get(k, 0) for k, v in est_mod._warn_counts.items()
+                              if v != warn0.get(k, 0)}
+
+
+def write_app_folder(folder, n_frames=APP_FRAMES, period=APP_PERIOD):
+    """A phase-14 EuRoC folder (see APP_CONFIG): the first ``n_frames``
+    frames of a circle of ``period`` s (None: of the default trajectory),
+    rendered on the host in float64 so that every machine writes the same
+    pixels (``app_folder_digest``). Returns the ground truth [(t, pose7)],
+    the uint8 images given to the writer and the IMU samples [(t, acc,
+    gyr)]."""
+    from okvis2_torch.config import read_config_file
+    from okvis2_torch.pipeline.dataset import DatasetWriter, SyntheticDataset
+
+    params = read_config_file(APP_CONFIG, dtype=torch.float64, device="cpu")
+    ds = SyntheticDataset(params.camera_tuple, params.extrinsics_list, params.imu.params,
+                          n_stars=2500, duration=period or n_frames / APP_RATE,
+                          frame_rate=APP_RATE, imu_rate=200.0, seed=0,
+                          trajectory="default" if period is None else "circle", device="cpu")
+    writer = DatasetWriter(folder, num_cameras=2)
+    gt, images, imu = [], [], []
+    for ev in ds.stream():
+        if ev[0] == "imu":
+            writer.add_imu_measurement(ev[1], ev[2], ev[3])
+            imu.append((ev[1], np.asarray(ev[2]), np.asarray(ev[3])))
+            continue
+        u8 = [(np.clip(im, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8) for im in ev[2]]
+        writer.add_images(ev[1], u8)
+        gt.append((ev[1], ev[3]))
+        images.append(u8)
+        if len(images) == n_frames:
+            break
+    writer.close()
+    return gt, images, imu
+
+
+def app_folder_digest(folder):
+    """SHA-256 over the folder's files in path order: each PNG's decoded
+    pixels (its compressed bytes depend on the zlib build), every other
+    file's bytes."""
+    import hashlib
+
+    from okvis2_torch.pipeline import png
+
+    h = hashlib.sha256()
+    paths = sorted(os.path.relpath(os.path.join(d, f), folder)
+                   for d, _, fs in os.walk(folder) for f in fs)
+    for rel in paths:
+        path = os.path.join(folder, rel)
+        h.update(rel.encode())
+        if rel.endswith(".png"):
+            h.update(png.read_png(path).tobytes())
+        else:
+            with open(path, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def check_round_trip(folder, images, imu, tol):
+    """Every image the EuRoC reader gives back equals, bit for bit, the
+    uint8 image the writer was given (as float32 / 255), and the IMU rows
+    agree to the CSV's 9 decimals. Returns the PNG decode ms per image
+    pair."""
+    from okvis2_torch.pipeline import png
+    from okvis2_torch.pipeline.dataset import EurocDatasetReader
+
+    events = list(EurocDatasetReader(folder, 2).stream(tol))
+    frames = [e for e in events if e[0] == "images"]
+    samples = [e for e in events if e[0] == "imu"]
+    assert len(frames) == len(images) == APP_FRAMES, (len(frames), len(images))
+    assert len(samples) == len(imu), (len(samples), len(imu))
+    for (_, _, got), want in zip(frames, images):
+        for g, w in zip(got, want):
+            assert g.dtype == np.float32 and np.array_equal(g, w.astype(np.float32) / 255.0)
+    d_t = max(abs(a[1] - b[0]) for a, b in zip(samples, imu))
+    d_v = max(float(np.abs(np.concatenate([a[2] - b[1], a[3] - b[2]])).max())
+              for a, b in zip(samples, imu))
+    assert d_t < 1e-9 and d_v <= 5e-10 * (1 + 1e-6), (d_t, d_v)
+    files = [[os.path.join(folder, "mav0", f"cam{c}", "data", n) for c in range(2)]
+             for n in sorted(os.listdir(os.path.join(folder, "mav0", "cam0", "data")),
+                             key=lambda n: int(n.split(".")[0]))]
+    t0 = time.perf_counter()
+    decoded = [[png.read_png(f) for f in pair] for pair in files]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    assert all(np.array_equal(d, w) for pair, want in zip(decoded, images)
+               for d, w in zip(pair, want))
+    log(f"[app] round trip: {len(frames)} image pairs bit for bit, {len(samples)} IMU rows "
+        f"within {d_v:.1e} (the CSV's 9 decimals), timestamps within {d_t:.1e} s; PNG decode "
+        f"{decode_ms:.3f} ms per 752x480 pair (host)")
+    return decode_ms
+
+
+def app_csv_ate(path, gt):
+    """The trajectory CSV's rows and their aligned ATE against ``gt``."""
+    from okvis2_torch.pipeline.trajectory import ate_rmse
+
+    rows = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    est = [(r[0] * 1e-9, np.concatenate([r[1:4], r[5:8], r[4:5]])) for r in rows]
+    return len(rows), ate_rmse(est, gt, align=True)
+
+
+def phase_app(card):
+    """Phase 14: the dataset app on the card at configs/euroc.yaml (see
+    APP_CONFIG): the two folders (their digests the JAX app's) and the
+    circle folder's round trip, the synchronous app on the circle with the
+    final BA and the map (checked against the JAX app on the same folder,
+    and the map loaded into a fresh system), then the default pipelined app
+    on APP_PIPELINED_FRAMES frames of the default trajectory. Returns the
+    kernels' launch counts over each app run."""
+    import shutil
+    import tempfile
+
+    from okvis2_torch.apps import app_synchronous
+    from okvis2_torch.config import read_config_file
+    from okvis2_torch.graph import estimator as est_mod
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.pipeline import slam as slam_mod
+    from okvis2_torch.pipeline.component_io import load_component
+    from okvis2_torch.pipeline.slam import SlamSystem
+    from okvis2_torch.utils.timing import Timing
+
+    stages = {
+        "sync": ("1 frontend (fused)", "0 apply previous solve", "2.05 keyframe extras",
+                 "2.06 place recognition", "3 optimise dispatch", "3.1 pack_np", "3.15 upload",
+                 "3.2 solve", "5 marginalise"),
+        "pipelined": ("0 consume finished frames", "0.1 lagged [solve|diag] fetch",
+                      "0.2 finish bookkeeping", "0.3 epilogue", "1 prep",
+                      "2 upload + dispatches", "2.06 place recognition", "5 marginalise",
+                      "3.2 fused solve (worker)"),
+    }
+    root = tempfile.mkdtemp(prefix="okvis2_app_")
+    launches = {}
+    try:
+        params = read_config_file(APP_CONFIG, device=DEVICE)
+        folders, truth = {}, {}
+        for name, period in (("sync", APP_PERIOD), ("pipelined", None)):
+            folders[name] = os.path.join(root, f"euroc_{name}")
+            t0 = time.perf_counter()
+            truth[name], images, imu = write_app_folder(folders[name], APP_FRAMES, period)
+            digest = app_folder_digest(folders[name])
+            path = f"a {period:g} s circle" if period else "the default trajectory"
+            log(f"[app {name}] wrote {len(truth[name])} frames ({W}x{H} stereo, "
+                f"configs/euroc.yaml's rig, {path}) and {len(imu)} IMU rows in {time.perf_counter() - t0:.2f} s; folder digest "
+                f"{digest} (the JAX app's folder: {APP_JAX[name]['folder_digest']})")
+            assert digest == APP_JAX[name]["folder_digest"], f"{name}: not the JAX app's folder"
+            if name == "sync":
+                decode_ms = check_round_trip(folders[name], images, imu,
+                                             params.camera_rig.timestamp_tolerance)
+
+        for name in ("sync", "pipelined"):
+            tag, jax, folder, gt = f"[app {name}]", APP_JAX[name], folders[name], truth[name]
+            out = os.path.join(root, name)
+            argv = [APP_CONFIG, folder, "--output-dir", out]
+            if name == "sync":
+                map_path = os.path.join(root, "session.map")
+                argv += ["--sync", "--final-ba", "--save-map", map_path]
+            else:
+                argv += ["--max-frames", str(APP_PIPELINED_FRAMES)]
+            n_frames = APP_FRAMES if name == "sync" else APP_PIPELINED_FRAMES
+            with recorded_app_system(slam_mod, est_mod, sync=torch.cuda.synchronize) as rec:
+                torch.cuda.synchronize()
+                harris_nms_cuda.launches = 0
+                Timing.reset()
+                t0 = time.perf_counter()
+                res = app_synchronous.main(argv, device=DEVICE)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                launches[f"app {name}"] = {"harris_nms": harris_nms_cuda.launches}
+            slam = res["slam"]
+            est = slam.estimator
+            assert rec["systems"] == [slam] and slam.pipelined == (name == "pipelined")
+            rows, ate = app_csv_ate(res["output"], gt[:n_frames])
+            kf = [est.state_order.index(s) for s in rec["kf_sids"]]
+            n_oct = slam.frontend.cfg.detection.octaves
+            steady = res["frame_s"][APP_WARMUP:]
+            bar = 1.5 * jax["ate_m"] + 0.005
+            if name == "pipelined" and jax["ate_m"] <= 0.10:
+                bar = min(bar, 0.10)
+            lag = {str(k): rec["in_flight"].count(k) for k in sorted(set(rec["in_flight"]))}
+            lb = slam.loop_backend
+            log(f"{tag} {res['frames']} frames in {wall_s:.2f} s: process_frame "
+                f"{len(steady) / sum(steady):.3f} frames/s over frames {APP_WARMUP + 1}-"
+                f"{res['frames']} (median {statistics.median(steady) * 1e3:.3f} ms; first "
+                f"{res['frame_s'][0] * 1e3:.1f} ms{'; it does not wait for the card' if name == 'pipelined' else ''}), "
+                f"harris_nms launches {harris_nms_cuda.launches} ({res['frames']} frames x "
+                f"{n_oct} octave) ({card})")
+            log(f"{tag} CSV rows {rows} (states {len(est.state_order)}), ATE {ate:.6f} m (bar "
+                f"{bar:.6f}; the JAX app on the same folder {jax['ate_m']:.6f}), keyframes at "
+                f"frames {kf} (JAX {jax['keyframes']}), landmarks {len(est.landmarks)}, loop "
+                f"closures {lb.num_loop_closures}, capacity truncations "
+                f"{json.dumps(rec['truncations'])}, frames in flight after each dispatch (lag "
+                f"histogram) {json.dumps(lag)}")
+            log_split(tag + " (all frames)", stages[name], res["frames"])
+            assert res["frames"] == n_frames and rows == n_frames == len(est.state_order), rows
+            assert ate < bar, f"app {name}: ATE {ate:.6f} m against a bar of {bar:.6f} m"
+            assert launches[f"app {name}"]["harris_nms"] == n_frames * n_oct, launches
+            if name == "sync":
+                assert kf == jax["keyframes"], (kf, jax["keyframes"])
+                info = rec["final_ba"]
+                log(f"{tag} final BA {rec['final_ba_ms']:.3f} ms: {info['states']} states "
+                    f"(JAX {jax['final_ba_states']}), {info['landmarks']} landmarks, "
+                    f"{info['restored_observations']} observations restored, reprojection RMS "
+                    f"{info['reproj_rms_px']:.3f} px (bar {1.5 * jax['final_ba_rms_px']:.3f}: 1.5x "
+                    f"the JAX app's) ({card})")
+                assert info["states"] == jax["final_ba_states"], (info, jax)
+                assert info["reproj_rms_px"] < 1.5 * jax["final_ba_rms_px"], (info, jax)
+                data = load_component(map_path)
+                fresh = SlamSystem(params.camera_tuple, params.extrinsics_list,
+                                   params.imu.params, device=DEVICE)
+                n_loaded = fresh.load_map(map_path)
+                log(f"{tag} the map ({os.path.getsize(map_path)} bytes) loads into a fresh "
+                    f"SlamSystem: {n_loaded} landmarks (the session's {len(est.landmarks)})")
+                assert n_loaded == len(data["landmarks"]) == len(est.landmarks), n_loaded
+            else:
+                share = float(np.mean([n == APP_IN_FLIGHT for n in rec["in_flight"][2:]]))
+                assert share >= MIN_SCHEDULE_SHARE, (
+                    f"app pipelined: {share:.3f} of the frames ran with {APP_IN_FLIGHT} in "
+                    f"flight: {rec['in_flight']}")
+        log(f"[app] PNG decode {decode_ms:.3f} ms per image pair ({card})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA card", file=sys.stderr)
@@ -1909,6 +2229,8 @@ def main():
     done("12 slam cnn")
     phase_sharded_final_ba(card, fba_pack)
     done("13 sharded final BA")
+    launches_slam.update(phase_app(card))
+    done("14 app")
     for k in kernels:
         by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
         by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})

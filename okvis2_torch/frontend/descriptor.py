@@ -64,18 +64,21 @@ _RING_MEMBERS = [np.nonzero(_RING_ID == r)[0] for r in range(_NUM_RINGS)]
 
 
 def _box_blur(img: torch.Tensor, k: int) -> torch.Tensor:
-    """Separable box blur of odd width k over [H,W] as cyclic shift-adds."""
+    """Separable box blur of odd width k over [H,W] as cyclic shift-adds.
+    It multiplies by 1/k where the JAX package divides by k, as XLA compiles
+    that division: on uint8 images many samples tie, and the same rounding
+    keeps the descriptor bits of the JAX package's CPU run."""
     if k <= 1:
         return img
     r = k // 2
     acc = img
     for d in range(1, r + 1):
         acc = acc + torch.roll(img, d, 0) + torch.roll(img, -d, 0)
-    acc = acc / k
+    acc = acc * (1.0 / k)
     out = acc
     for d in range(1, r + 1):
         out = out + torch.roll(acc, d, 1) + torch.roll(acc, -d, 1)
-    return out / k
+    return out * (1.0 / k)
 
 
 def nearest_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:

@@ -74,6 +74,13 @@ def _subpixel_offsets(score: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(dx, -0.5, 0.5), torch.clamp(dy, -0.5, 0.5)
 
 
+def _topk(x: torch.Tensor, k: int):
+    """The k largest entries along the last dimension, ties in index order
+    (as ``lax.top_k`` orders them; ``torch.topk`` leaves tie order open)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def _grid_topk(score: torch.Tensor, cfg: DetectionConfig):
     """Per-cell top-k then global top-k over [C,H,W].
     Returns (flat_idx [C,N], score [C,N])."""
@@ -85,7 +92,7 @@ def _grid_topk(score: torch.Tensor, cfg: DetectionConfig):
         C, gh * gw, cs * cs
     )
     kc = min(cfg.per_cell, cs * cs)
-    cell_scores, cell_idx = torch.topk(cells, kc, dim=-1)  # [C, ncells, kc]
+    cell_scores, cell_idx = _topk(cells, kc)  # [C, ncells, kc]
     ci = torch.arange(gh * gw, device=score.device)
     cy, cx = ci // gw, ci % gw
     iy = cell_idx // cs + (cy * cs)[:, None]
@@ -93,7 +100,7 @@ def _grid_topk(score: torch.Tensor, cfg: DetectionConfig):
     flat = (iy * W + ix).reshape(C, -1)
     scores = cell_scores.reshape(C, -1)
     n = min(cfg.max_keypoints, flat.shape[1])
-    top_scores, top_i = torch.topk(scores, n, dim=-1)
+    top_scores, top_i = _topk(scores, n)
     return torch.gather(flat, 1, top_i), top_scores
 
 
@@ -159,7 +166,7 @@ def _detect_batch(images: torch.Tensor, cfg: DetectionConfig, harris_fn):
     octv = torch.cat([p[2] for p in per_oct], dim=1)
     size = torch.cat([p[3] for p in per_oct], dim=1)
 
-    top_scores, ti = torch.topk(score, N, dim=-1)
+    top_scores, ti = _topk(score, N)
     return {
         "xy": torch.gather(xy, 1, ti[..., None].expand(-1, -1, 2)),
         "score": top_scores,

@@ -20,11 +20,31 @@ as the JAX package, so one seed gives one world.
 Trajectory and IMU come from ``utils/synthetic.true_state`` / ``imu_at``,
 or from ``utils/synthetic.CircleTrajectory`` with one circle per
 ``duration``.
+
+Dataset folders (the rest of the JAX module):
+
+- ``EurocDatasetReader``: the EuRoC/ASL folder format
+  (``mav0/cam{i}/data.csv`` + ``data/``, ``mav0/imu0/data.csv``; the
+  reference's DatasetReader, okvis_multisensor_processing/src/
+  DatasetReader.cpp), streamed as ``('imu', t, acc, gyr)`` and
+  ``('images', t, [img...])`` events in time order, cam0 the master of the
+  camera sync; ``start_streaming`` feeds callbacks from a thread.
+- ``RpgDatasetReader``: the UZH-RPG format (``images.txt``, ``imu.txt``,
+  optionally ``left_images.txt`` / ``right_images.txt``).
+- ``DatasetWriter``: records a stream into an EuRoC folder
+  (DatasetWriter.cpp); its CSVs are the JAX writer's byte for byte.
+
+Images are read and written by the port's PNG codec (``pipeline/png.py``),
+float32 in [0, 1] on the way in, ``clip(img * 255)`` truncated to uint8 on
+the way out, as the JAX package does through OpenCV.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List
+import csv
+import os
+import threading
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +53,7 @@ from torch.func import vmap
 from okvis2_torch import resolve_device
 from okvis2_torch.core import so3
 from okvis2_torch.core.se3 import Transformation
+from okvis2_torch.pipeline import png
 from okvis2_torch.utils import synthetic
 
 
@@ -298,3 +319,195 @@ class TexturedWorldDataset(SyntheticDataset):
     def stream(self) -> Iterator[tuple]:
         self._frame_i = 0  # the exposure follows the frame clock
         yield from super().stream()
+
+
+def load_image(fn: str) -> np.ndarray:
+    """A dataset image as float32 [H, W] in [0, 1]."""
+    return png.read_png(fn).astype(np.float32) / 255.0
+
+
+def _imu_events(imu, frames, load) -> Iterator[tuple]:
+    """Merge IMU rows and synced frames into one time-ordered stream: the
+    IMU up to 5 ms past each frame goes before it (DatasetReader's
+    look-ahead)."""
+    ii = 0
+    for t, fns in frames:
+        while ii < len(imu) and imu[ii][0] <= t + 0.005:
+            yield ("imu", imu[ii][0], imu[ii][1], imu[ii][2])
+            ii += 1
+        yield ("images", t, [load(f) for f in fns])
+    while ii < len(imu):
+        yield ("imu", imu[ii][0], imu[ii][1], imu[ii][2])
+        ii += 1
+
+
+class EurocDatasetReader:
+    """EuRoC/ASL folder reader: ``<path>/mav0/cam{i}/data.csv`` + ``data/``,
+    ``<path>/mav0/imu0/data.csv``."""
+
+    def __init__(self, path: str, num_cameras: int = 2):
+        self.path = path
+        self.num_cameras = num_cameras
+        self.imu_callback: Optional[Callable] = None
+        self.images_callback: Optional[Callable] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    def set_imu_callback(self, cb: Callable):
+        self.imu_callback = cb
+
+    def set_images_callback(self, cb: Callable):
+        self.images_callback = cb
+
+    def _read_imu(self) -> List[Tuple[float, np.ndarray, np.ndarray]]:
+        rows = []
+        with open(os.path.join(self.path, "mav0", "imu0", "data.csv")) as f:
+            for row in csv.reader(f):
+                if row[0].startswith("#"):
+                    continue
+                gyr = np.asarray([float(x) for x in row[1:4]])
+                acc = np.asarray([float(x) for x in row[4:7]])
+                rows.append((int(row[0]) * 1e-9, acc, gyr))
+        return rows
+
+    def _read_cam_index(self, ci: int) -> List[Tuple[float, str]]:
+        rows = []
+        with open(os.path.join(self.path, "mav0", f"cam{ci}", "data.csv")) as f:
+            for row in csv.reader(f):
+                if row[0].startswith("#"):
+                    continue
+                rows.append((int(row[0]) * 1e-9,
+                             os.path.join(self.path, "mav0", f"cam{ci}", "data", row[1].strip())))
+        return rows
+
+    def stream(self, sync_tolerance: float = 0.005) -> Iterator[tuple]:
+        """Yield ('imu', t, acc, gyr) and ('images', t, [img...]) events in
+        time order; each cam0 frame is synced with the other cameras'
+        nearest frames within ``sync_tolerance`` (DatasetReader's sync
+        groups) and dropped when one has none."""
+        imu = self._read_imu()
+        cams = [self._read_cam_index(ci) for ci in range(self.num_cameras)]
+        frames = []
+        ptrs = [0] * self.num_cameras
+        for t0, fn0 in cams[0]:
+            fns = [fn0]
+            for ci in range(1, self.num_cameras):
+                while (ptrs[ci] + 1 < len(cams[ci])
+                       and cams[ci][ptrs[ci] + 1][0] <= t0 + sync_tolerance):
+                    ptrs[ci] += 1
+                tc, fnc = cams[ci][ptrs[ci]]
+                if abs(tc - t0) > sync_tolerance:
+                    break
+                fns.append(fnc)
+            else:
+                frames.append((t0, fns))
+        return _imu_events(imu, frames, load_image)
+
+    def start_streaming(self):
+        """Feed the callbacks from a thread of their own."""
+        def run():
+            for ev in self.stream():
+                if self._stop.is_set():
+                    break
+                if ev[0] == "imu" and self.imu_callback:
+                    self.imu_callback(ev[1], ev[2], ev[3])
+                elif ev[0] == "images" and self.images_callback:
+                    self.images_callback(ev[1], ev[2])
+
+        self._stop.clear()
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def stop_streaming(self):
+        self._stop.set()
+        if self._thread:
+            self._thread.join()
+
+
+class RpgDatasetReader:
+    """UZH-RPG format reader (the reference's RpgDatasetReader,
+    okvis_multisensor_processing/src/RpgDatasetReader.cpp): ``images.txt``
+    (id t path), ``imu.txt`` (id t wx wy wz ax ay az), and for stereo
+    ``left_images.txt`` / ``right_images.txt``."""
+
+    def __init__(self, path: str, num_cameras: int = 1):
+        self.path = path
+        self.num_cameras = num_cameras
+
+    def _read_images_index(self, fn):
+        out = []
+        with open(os.path.join(self.path, fn)) as f:
+            for line in f:
+                if line.startswith("#") or not line.strip():
+                    continue
+                parts = line.split()
+                out.append((float(parts[1]), os.path.join(self.path, parts[2])))
+        return out
+
+    def _read_imu(self):
+        out = []
+        with open(os.path.join(self.path, "imu.txt")) as f:
+            for line in f:
+                if line.startswith("#") or not line.strip():
+                    continue
+                p = [float(x) for x in line.split()]
+                out.append((p[1], np.asarray(p[5:8]), np.asarray(p[2:5])))
+        return out
+
+    def stream(self, sync_tolerance: float = 0.005) -> Iterator[tuple]:
+        """The same events as ``EurocDatasetReader.stream``; stereo frames
+        pair the left and right lists in order, kept when their times are
+        within ``sync_tolerance``."""
+        if self.num_cameras >= 2 and os.path.exists(os.path.join(self.path, "left_images.txt")):
+            left = self._read_images_index("left_images.txt")
+            right = self._read_images_index("right_images.txt")
+            frames = [(tl, [fl, fr]) for (tl, fl), (tr, fr) in zip(left, right)
+                      if abs(tl - tr) <= sync_tolerance]
+        else:
+            frames = [(t, [f]) for t, f in self._read_images_index("images.txt")]
+        return _imu_events(self._read_imu(), frames, load_image)
+
+
+class DatasetWriter:
+    """Record a live stream into EuRoC folder format (the reference's
+    DatasetWriter, okvis_multisensor_processing/src/DatasetWriter.cpp). Fed
+    by the same ``add_images`` / ``add_imu_measurement`` calls as
+    ``SlamSystem``; float images in [0, 1] are stored as
+    ``clip(img * 255)`` truncated to uint8. ``close()`` ends the CSVs."""
+
+    def __init__(self, path: str, num_cameras: int = 2):
+        self.path = path
+        self.num_cameras = num_cameras
+        for c in range(num_cameras):
+            os.makedirs(os.path.join(path, "mav0", f"cam{c}", "data"), exist_ok=True)
+        os.makedirs(os.path.join(path, "mav0", "imu0"), exist_ok=True)
+        self._imu_f = open(os.path.join(path, "mav0", "imu0", "data.csv"), "w")
+        self._imu_f.write("#timestamp,w_x,w_y,w_z,a_x,a_y,a_z\n")
+        self._cam_f = []
+        for c in range(num_cameras):
+            f = open(os.path.join(path, "mav0", f"cam{c}", "data.csv"), "w")
+            f.write("#timestamp [ns],filename\n")
+            self._cam_f.append(f)
+
+    def add_imu_measurement(self, t: float, accel, gyro) -> bool:
+        g = np.asarray(gyro)
+        a = np.asarray(accel)
+        self._imu_f.write(f"{int(round(t * 1e9))},{g[0]:.9f},{g[1]:.9f},{g[2]:.9f},"
+                          f"{a[0]:.9f},{a[1]:.9f},{a[2]:.9f}\n")
+        return True
+
+    def add_images(self, t: float, images) -> bool:
+        ts = int(round(t * 1e9))
+        for c, img in enumerate(images):
+            img = np.asarray(img)
+            if img.dtype != np.uint8:
+                img = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+            name = f"{ts}.png"
+            png.write_png(os.path.join(self.path, "mav0", f"cam{c}", "data", name), img)
+            self._cam_f[c].write(f"{ts},{name}\n")
+        return True
+
+    def close(self):
+        self._imu_f.close()
+        for f in self._cam_f:
+            f.close()

@@ -62,8 +62,11 @@ synchronous loop, one frame deferred in the pipelined one). With ``mesh``
 (``parallel.make_mesh``), ``do_final_ba`` runs the landmark-sharded solve
 over the mesh's process group; every rank calls it on the same session.
 
-Not ported here: the CSV taps and the JAX bench's frame capture for its
-device-loop replay.
+Debug CSV taps (``set_imu_csv_file``, ``set_tracks_csv_file``;
+ViInterface::setImuCsvFile / setTracksCsvFile) write each IMU sample as it
+is added and each frame's tracking record as its callbacks run, in the JAX
+package's format; the files are line-buffered. Not ported here: the JAX
+bench's frame capture for its device-loop replay.
 """
 
 from __future__ import annotations
@@ -154,6 +157,8 @@ class SlamSystem:
         self._image_queue: Deque[Tuple[float, List[np.ndarray]]] = collections.deque()
         self._last_frame_t: Optional[float] = None
         self._callbacks: List[Callable] = []
+        self._imu_csv = None
+        self._tracks_csv = None
         self._lost_count = 0
         # multi-session: the landmarks of loaded maps (a relocalisation moves
         # the session, not them), the relocalisations applied, the latest
@@ -170,6 +175,10 @@ class SlamSystem:
     def add_imu_measurement(self, t: float, accel, gyro) -> bool:
         self._imu_queue.append(
             (float(t), np.asarray(accel, np.float64), np.asarray(gyro, np.float64)))
+        if self._imu_csv is not None:
+            g, a = np.asarray(gyro), np.asarray(accel)
+            self._imu_csv.write(f"{int(round(t * 1e9))},{g[0]:.9f},{g[1]:.9f},{g[2]:.9f},"
+                                f"{a[0]:.9f},{a[1]:.9f},{a[2]:.9f}\n")
         return True
 
     def add_images(self, t: float, images: List[np.ndarray]) -> bool:
@@ -224,6 +233,17 @@ class SlamSystem:
 
     def set_optimised_graph_callback(self, cb: Callable):
         self._callbacks.append(cb)
+
+    # debug CSV taps (ViInterface::setImuCsvFile / setTracksCsvFile,
+    # okvis_common/include/okvis/ViInterface.hpp:298-314)
+    def set_imu_csv_file(self, path: str):
+        self._imu_csv = open(path, "w", buffering=1)
+        self._imu_csv.write("#timestamp,w_x,w_y,w_z,a_x,a_y,a_z\n")
+
+    def set_tracks_csv_file(self, path: str):
+        self._tracks_csv = open(path, "w", buffering=1)
+        self._tracks_csv.write("#timestamp,state_id,is_keyframe,num_matched,"
+                               "num_motion_stereo,ransac_inliers,num_landmarks\n")
 
     # ------------------------------------------------------------------
     def _gather_imu(self, t0: Optional[float], t1: float):
@@ -543,6 +563,11 @@ class SlamSystem:
         )
         for cb in self._callbacks:
             cb(t, sid, est.states[sid].pose.copy(), self.tracking)
+        if self._tracks_csv is not None:
+            self._tracks_csv.write(
+                f"{int(round(t * 1e9))},{sid},{int(is_kf)},{m.get('num_matched', 0)},"
+                f"{m.get('num_motion_stereo', 0)},{m.get('ransac_inliers', 0)},"
+                f"{len(est.landmarks)}\n")
 
     # ------------------------------------------------------------------
     def _apply_relocalisation(self, est, sid, frames, v):

@@ -3,9 +3,11 @@
 Port of ``okvis2_tpu/pipeline/synthetic_run.py`` (the star field or the
 textured world, default or circle trajectory, synchronous or pipelined
 loop, optional loop closure): renders stereo frames along the analytic trajectory, feeds
-images and exact IMU through ``SlamSystem`` and computes the aligned ATE
-against ground truth (the reference's validation analogue:
-okvis_app_synchronous on EuRoC, README.md:179-206).
+images and IMU (exact, or with white noise) through ``SlamSystem`` and
+computes the aligned ATE against ground truth (the reference's validation
+analogue: okvis_app_synchronous on EuRoC, README.md:179-206).
+``run_regression_drive`` is the long-horizon drive: a noisy-IMU circle with
+loop closure.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ def run_synthetic_vio(
     height: int = 240,
     max_keypoints: int = 256,
     estimator_config: Optional[EstimatorConfig] = None,
+    imu_noise: float = 0.0,
+    verbose: bool = False,
     n_stars: int = 3000,
     dtype=torch.float32,
     device=None,
@@ -61,6 +65,7 @@ def run_synthetic_vio(
     do_loop_closures: bool = False,
     loop_closure_config: Optional[LoopClosureConfig] = None,
     dataset: str = "stars",
+    rig=None,
 ):
     """Returns a dict with the aligned ATE, the trajectories, per-frame
     wall times, the frames whose host work closed a loop ("lc_frames") and
@@ -71,10 +76,14 @@ def run_synthetic_vio(
     happen on a fixed schedule, whatever the solves' timing).
     ``dataset="textured"`` renders the textured world
     (``TexturedWorldDataset``: textured surfaces, true occlusion, exposure
-    changes) in place of the star field. Runs on ``device`` (None: the
-    CUDA card; raises without one)."""
+    changes) in place of the star field. ``rig`` injects a (cameras,
+    extrinsics) pair (the fisheye and four-camera regression rigs) in place
+    of the stereo radtan rig; ``imu_noise`` scales the IMU's white noise
+    (1e-2 rad/s and 1e-1 m/s^2 per unit); ``verbose`` prints each frame's
+    position error. Runs on ``device`` (None: the CUDA card; raises without
+    one)."""
     dev = resolve_device(device)
-    cams, exts = small_rig(width, height, dtype=dtype, device=dev)
+    cams, exts = rig if rig is not None else small_rig(width, height, dtype=dtype, device=dev)
     imu_params = ImuParameters.create(g=9.81, device=dev)
     if estimator_config is None:
         estimator_config = EstimatorConfig(
@@ -86,10 +95,12 @@ def run_synthetic_vio(
     slam._force_min_pending = force_min_pending
     if dataset == "textured":
         ds = TexturedWorldDataset(cams, exts, imu_params, duration=duration,
-                                  frame_rate=frame_rate, trajectory=trajectory, device=dev)
+                                  frame_rate=frame_rate, imu_noise=imu_noise,
+                                  trajectory=trajectory, device=dev)
     else:
         ds = SyntheticDataset(cams, exts, imu_params, duration=duration, frame_rate=frame_rate,
-                              n_stars=n_stars, trajectory=trajectory, device=dev)
+                              n_stars=n_stars, imu_noise=imu_noise, trajectory=trajectory,
+                              device=dev)
 
     gt_traj = []
     t_start = time.time()
@@ -110,6 +121,11 @@ def run_synthetic_vio(
         if slam.loop_backend is not None and slam.loop_backend.num_loop_closures > lc0:
             lc_frames.append(n)
         n += 1
+        if verbose:
+            est_pose = slam.estimator.states[slam.estimator.window[-1]].pose
+            err = np.linalg.norm(est_pose[:3] - pose_gt[:3])
+            print(f"frame {n}: t={t:.2f} err={err:.4f} kf={slam.tracking.is_keyframe} "
+                  f"lms={len(slam.estimator.landmarks)} dt={frame_times[-1]:.2f}s", flush=True)
 
     est_traj = slam.trajectory()
     ate = ate_rmse(est_traj, gt_traj, align=True)
@@ -126,3 +142,26 @@ def run_synthetic_vio(
         "frames": n,
         "slam": slam,
     }
+
+
+def run_regression_drive(
+    duration: float = 60.0,
+    frame_rate: float = 10.0,
+    imu_noise: float = 1.0,
+    verbose: bool = True,
+    **kwargs,
+):
+    """The long-horizon accuracy drive: a >= 600-frame circle with noisy
+    IMU and loop closure, through the whole marginalisation cascade
+    (IMU-frame elimination, keyframes to pose-graph factors, window drops),
+    place recognition and loop closure; ``kwargs`` go to
+    ``run_synthetic_vio`` (``device``, ``dtype``, ``pipelined``, ``rig``,
+    ...). The JAX package's capacities: 512 landmark and 4096 observation
+    slots, whose long drives reach 547-805 window landmarks (a truncation
+    there drops real constraints; the reference's problem is uncapped)."""
+    if "estimator_config" not in kwargs:
+        kwargs["estimator_config"] = EstimatorConfig(
+            window_slots=10, landmark_slots=512, obs_slots=4096, imu_seg_capacity=128)
+    return run_synthetic_vio(duration=duration, frame_rate=frame_rate, imu_noise=imu_noise,
+                             verbose=verbose, trajectory="circle", do_loop_closures=True,
+                             **kwargs)

@@ -2,7 +2,9 @@
 and the tracking program and the synchronous and pipelined SLAM loops
 (whose detection runs the Harris kernel) on the card against the same on
 the CPU; Fast-SCNN and the textured world on the card against the CPU; the
-sharded solve over NCCL at world size 1 against the unsharded one.
+sharded solve over NCCL at world size 1 against the unsharded one; the
+dataset app's config reader, PNG round trip and a 5-frame app run on the
+card at configs/euroc.yaml.
 
 A hand-written CUDA kernel has no CPU mode, so every test here is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it also
@@ -15,6 +17,8 @@ does, so the response and NMS maps are held bit for bit over the whole map.
 (An absolute bar such as 1e-6 would hold nothing on the textured images,
 where most of |resp| lies far below it.)
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -839,3 +843,61 @@ def test_sharded_solve_nccl_world_size_one(cuda, tmp_path):
     assert stats["iterations"] == ref_stats["iterations"]
     assert stats["collectives"] == 4 * stats["iterations"] + 2
     assert (solved.pose[:, :3] - ref.pose[:, :3]).abs().max() < 1e-8
+
+
+EUROC_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+                          "euroc.yaml")
+
+
+def _euroc_folder(folder, n_frames):
+    """The first ``n_frames`` of chip_smoke.py's phase-14 EuRoC folder
+    (configs/euroc.yaml's rig); returns the uint8 images."""
+    from chip_smoke import write_app_folder
+
+    return write_app_folder(folder, n_frames)[1]
+
+
+def test_config_reader_on_card(cuda):
+    from okvis2_torch.config import read_config_file
+
+    card, host = read_config_file(EUROC_YAML), read_config_file(EUROC_YAML, device="cpu")
+    for a, b in zip(card.cameras, host.cameras):
+        assert a.camera.focal.device.type == "cuda" and a.camera.focal.dtype == torch.float32
+        assert a.camera.image_size == b.camera.image_size == (752, 480)
+        assert torch.equal(a.camera.focal.cpu(), b.camera.focal)
+        assert torch.equal(a.camera.distortion.params().cpu(), b.camera.distortion.params())
+        assert torch.equal(a.T_SC.r.cpu(), b.T_SC.r)
+        assert torch.allclose(a.T_SC.q.cpu(), b.T_SC.q, rtol=0, atol=1e-7)
+    assert card.imu.params.g.device.type == "cuda"
+
+
+def test_png_round_trip_at_euroc_size(cuda, tmp_path):
+    from okvis2_torch.pipeline import png
+    from okvis2_torch.pipeline.dataset import EurocDatasetReader
+
+    images = _euroc_folder(str(tmp_path), 2)
+    frames = [e for e in EurocDatasetReader(str(tmp_path), 2).stream() if e[0] == "images"]
+    assert len(frames) == 2
+    for (_, _, got), want in zip(frames, images):
+        for g, w in zip(got, want):
+            assert g.shape == (480, 752) and np.array_equal(g, w.astype(np.float32) / 255.0)
+    name = sorted(os.listdir(tmp_path / "mav0" / "cam0" / "data"))[0]
+    assert png.read_png(str(tmp_path / "mav0" / "cam0" / "data" / name)).dtype == np.uint8
+
+
+def test_app_five_frames_on_card(cuda, tmp_path):
+    """``app_synchronous.main`` on the card (``device`` left at None): one
+    Harris launch per frame per octave, a CSV row per state."""
+    from okvis2_torch.apps import app_synchronous
+
+    _euroc_folder(str(tmp_path / "euroc"), 5)
+    n0 = harris_cuda.harris_nms_cuda.launches
+    res = app_synchronous.main([EUROC_YAML, str(tmp_path / "euroc"), "--output-dir",
+                                str(tmp_path / "out"), "--sync", "--max-frames", "5"])
+    torch.cuda.synchronize()
+    slam = res["slam"]
+    assert slam.device.type == "cuda" and res["frames"] == 5
+    n_oct = slam.frontend.cfg.detection.octaves
+    assert harris_cuda.harris_nms_cuda.launches - n0 == 5 * n_oct
+    rows = np.loadtxt(res["output"], delimiter=",", skiprows=1, ndmin=2)
+    assert rows.shape == (5, 8) and np.isfinite(rows).all()

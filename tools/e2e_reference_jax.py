@@ -74,19 +74,48 @@ sets ``--xla_force_host_platform_device_count`` before JAX starts) and
 gives its ATE (no reprojection RMS: the sharded path computes no
 diagnostics). Phase 13's reference: ``40 8 circle 2 0 0 4096 1 2 1 0 sync 1
 stars 2``.
+
+App mode, phase 14's reference (the dataset app at ``configs/euroc.yaml``):
+
+    env JAX_PLATFORMS=cpu python tools/e2e_reference_jax.py app \
+        [n_frames] [pipelined_frames] [pipelined_min_pending]
+
+writes phase 14's two EuRoC folders with chip_smoke.py's
+``write_app_folder`` (the port's ``SyntheticDataset`` with the config's two
+752x480 radtan cameras, ``T_SC`` and IMU parameters, 2500 stars, seed 0,
+``n_frames`` frames (default 40) at 20 Hz, 200 Hz IMU; uint8 images, the
+port's ``DatasetWriter``; rendered on the CPU in float64, as the smoke run
+renders them): the first of a circle of ``chip_smoke.APP_PERIOD`` s, and
+the first of the default trajectory. It runs
+``okvis2_tpu.apps.app_synchronous.main`` on each, recorded by
+chip_smoke.py's ``recorded_app_system``: ``--sync --final-ba --save-map``
+on the circle, and the default pipelined loop on the default trajectory
+with ``--max-frames`` ``pipelined_frames`` (default 30),
+``pipelined_min_pending`` frames kept in flight (default 1: the card's
+schedule). The JSON line gives the folders' digests (``app_folder_digest``:
+phase 14 checks that it reads the same pixels), and for each run the final CSV's rows and aligned ATE against the ground truth,
+the keyframes (by frame), landmarks, loop closures and the capacity
+truncations (``_warn_counts``); for the synchronous run the final BA's
+record and the map's landmark count; for the pipelined one the frames in
+flight after each dispatch.
 """
 
 import json
 import os
 import sys
+import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "okvis2_tpu", "models", "weights", "fast_scnn_synthetic.npz")
+EUROC_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs", "euroc.yaml")
 
 
 def main(argv):
+    if len(argv) > 1 and argv[1] == "app":
+        return app_main(argv[1:])
     n_frames = int(argv[1]) if len(argv) > 1 else 60
     rate = float(argv[2]) if len(argv) > 2 else 20.0
     trajectory = argv[3] if len(argv) > 3 else "default"
@@ -265,6 +294,98 @@ def main(argv):
         "edges": [[e.id_i, e.id_j] for e in est.pose_graph_edges], "max_window": max_window,
         **loop, **extra, "wall_s": time.perf_counter() - t_start,
     }))
+
+
+def app_run(argv, min_pending=0):
+    """``okvis2_tpu.apps.app_synchronous.main(argv)`` with its system
+    recorded by chip_smoke.py's ``recorded_app_system``: keyframes (by
+    frame), frames in flight after each dispatch, loop closures, capacity
+    truncations; returns (system, record)."""
+    from chip_smoke import recorded_app_system
+    from okvis2_tpu.apps import app_synchronous
+    from okvis2_tpu.graph import estimator as est_mod
+    from okvis2_tpu.pipeline import slam as slam_mod
+
+    t0 = time.perf_counter()
+    with recorded_app_system(slam_mod, est_mod, min_pending=min_pending) as rec:
+        app_synchronous.main(argv)
+    slam = rec["systems"][0]
+    est = slam.estimator
+    lb = slam.loop_backend
+    info = rec["final_ba"]
+    return slam, {
+        "keyframe_frames": [est.state_order.index(s) for s in rec["kf_sids"]],
+        "landmarks": len(est.landmarks),
+        "loop_closures": lb.num_loop_closures if lb is not None else None,
+        "truncations": rec["truncations"],
+        "in_flight": {str(k): rec["in_flight"].count(k) for k in sorted(set(rec["in_flight"]))},
+        "final_ba": None if info is None else {
+            **{k: info.get(k) for k in ("restored_observations", "states", "landmarks",
+                                        "reproj_rms_px")},
+            "wall_s": rec["final_ba_ms"] * 1e-3},
+        "wall_s": time.perf_counter() - t0,
+    }
+
+
+def csv_ate(path, gt):
+    """Rows of an EuRoC trajectory CSV and their aligned ATE against ``gt``."""
+    import numpy as np
+
+    from okvis2_tpu.pipeline.trajectory import ate_rmse
+
+    rows = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    est = [(r[0] * 1e-9, np.concatenate([r[1:4], r[5:8], r[4:5]])) for r in rows]
+    return len(rows), ate_rmse(est, gt, align=True)
+
+
+def app_main(argv):
+    """Phase 14's reference: the JAX app on phase 14's folders, both loops."""
+    import shutil
+    import tempfile
+
+    n_frames = int(argv[1]) if len(argv) > 1 else 40
+    pipelined_frames = int(argv[2]) if len(argv) > 2 else 30
+    min_pending = int(argv[3]) if len(argv) > 3 else 1
+    from chip_smoke import APP_PERIOD, app_folder_digest, write_app_folder
+    from okvis2_torch.pipeline.component_io import load_component
+
+    root = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        out = {"frames": n_frames, "config": "configs/euroc.yaml", "period_s": APP_PERIOD}
+        folders, truth = {}, {}
+        for name, period in (("sync", APP_PERIOD), ("pipelined", None)):
+            folders[name] = os.path.join(root, f"euroc_{name}")
+            truth[name], _, _ = write_app_folder(folders[name], n_frames, period)
+            out[f"{name}_folder_digest"] = app_folder_digest(folders[name])
+        print(f"wrote 2 x {n_frames} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+        map_path = os.path.join(root, "session.map")
+        slam, rec = app_run([EUROC_YAML, folders["sync"], "--output-dir",
+                             os.path.join(root, "sync"), "--sync", "--final-ba", "--save-map",
+                             map_path])
+        rows, ate = csv_ate(os.path.join(root, "sync", "okvis2-final_trajectory.csv"),
+                            truth["sync"])
+        rec.update(rows=rows, ate_rmse_m=ate,
+                   map_landmarks=len(load_component(map_path)["landmarks"]))
+        out["sync"] = rec
+        print(json.dumps({"sync": rec}), flush=True)
+        slam, rec = app_run([EUROC_YAML, folders["pipelined"], "--output-dir",
+                             os.path.join(root, "pipelined"), "--max-frames",
+                             str(pipelined_frames)], min_pending)
+        rows, ate = csv_ate(os.path.join(root, "pipelined", "okvis2-final_trajectory.csv"),
+                            truth["pipelined"][:pipelined_frames])
+        rec.update(rows=rows, ate_rmse_m=ate, min_pending=min_pending)
+        out["pipelined"] = rec
+        out["wall_s"] = time.perf_counter() - t0
+        print(json.dumps(out), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the JAX loop-closure backend compiles full-graph solves ahead on daemon
+    # threads (okvis2_tpu/pipeline/full_graph.py:1140): the interpreter's
+    # teardown aborts one still inside XLA, so wait for them
+    for th in threading.enumerate():
+        if th is not threading.current_thread():
+            th.join()
 
 
 def cnn_record(slam, est, suppressed, kf_images, labels):
