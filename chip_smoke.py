@@ -94,6 +94,14 @@ hand-written kernel against its plain PyTorch version:
                the JAX app on the same folder (ATE, keyframes, final BA)
                and the map reloaded; the default pipelined app at phase
                9's rule; launch counts zeroed just before each app run
+ 15. ros2 bag replay  the ROS2 node's replay (okvis2_torch.ros2.nodes
+               main_synchronous) at configs/euroc.yaml: phase 14's
+               synchronous folder written as rosbag2 bags (write_rosbag:
+               sqlite3 and chunked mcap), their streams held to the folder's
+               and to each other, then BAG_FRAMES frames of the .db3 bag
+               replayed on the card against the JAX node on the same bag
+               (keyframes, landmarks, ATE, the printed frame count); launch
+               counts zeroed just before the replay
 
 Every check raises on failure, so any failing phase exits non-zero. The
 line before the last is the kernels' JSON record; the last line is
@@ -374,6 +382,16 @@ APP_JAX = {
 # the pipelined app runs at the loop's own lag: on the card two frames in
 # flight after each dispatch from the third frame on (phase 9's schedule)
 APP_IN_FLIGHT = 2
+# the stages each app run's split prints (utils/timing.py names)
+APP_STAGES = {
+    "sync": ("1 frontend (fused)", "0 apply previous solve", "2.05 keyframe extras",
+             "2.06 place recognition", "3 optimise dispatch", "3.1 pack_np", "3.15 upload",
+             "3.2 solve", "5 marginalise"),
+    "pipelined": ("0 consume finished frames", "0.1 lagged [solve|diag] fetch",
+                  "0.2 finish bookkeeping", "0.3 epilogue", "1 prep",
+                  "2 upload + dispatches", "2.06 place recognition", "5 marginalise",
+                  "3.2 fused solve (worker)"),
+}
 
 
 def log(msg):
@@ -1928,12 +1946,13 @@ def phase_sharded_final_ba(card, pack):
 def recorded_app_system(slam_mod, est_mod, sync=lambda: None, min_pending=None):
     """While open, ``slam_mod.SlamSystem`` (the port's, or the JAX package's
     in tools/e2e_reference_jax.py) is a subclass that records its keyframes
-    (by state id), the frames in flight after each ``process_frame``, the
-    final BA's info and ms (``sync`` waits for the device around it), and
-    the capacity truncations (``est_mod._warn_counts``) of the run;
+    (by state id), the frames in flight after and the host seconds of each
+    ``process_frame`` (``frame_s``), the final BA's info and ms (``sync``
+    waits for the device around it), and the capacity truncations
+    (``est_mod._warn_counts``) of the run;
     ``min_pending`` sets the pipelined loop's ``_force_min_pending``."""
     base = slam_mod.SlamSystem
-    rec = {"systems": [], "kf_sids": [], "in_flight": [], "final_ba": None,
+    rec = {"systems": [], "kf_sids": [], "in_flight": [], "frame_s": [], "final_ba": None,
            "final_ba_ms": None}
 
     class Recorded(base):
@@ -1946,7 +1965,9 @@ def recorded_app_system(slam_mod, est_mod, sync=lambda: None, min_pending=None):
             rec["systems"].append(self)
 
         def process_frame(self):
+            t0 = time.perf_counter()
             out = super().process_frame()
+            rec["frame_s"].append(time.perf_counter() - t0)
             rec["in_flight"].append(len(self._pending_frames))
             return out
 
@@ -2072,7 +2093,8 @@ def phase_app(card):
     final BA and the map (checked against the JAX app on the same folder,
     and the map loaded into a fresh system), then the default pipelined app
     on APP_PIPELINED_FRAMES frames of the default trajectory. Returns the
-    kernels' launch counts over each app run."""
+    kernels' launch counts over each app run and the synchronous app's
+    trajectory CSV rows."""
     import shutil
     import tempfile
 
@@ -2085,15 +2107,6 @@ def phase_app(card):
     from okvis2_torch.pipeline.slam import SlamSystem
     from okvis2_torch.utils.timing import Timing
 
-    stages = {
-        "sync": ("1 frontend (fused)", "0 apply previous solve", "2.05 keyframe extras",
-                 "2.06 place recognition", "3 optimise dispatch", "3.1 pack_np", "3.15 upload",
-                 "3.2 solve", "5 marginalise"),
-        "pipelined": ("0 consume finished frames", "0.1 lagged [solve|diag] fetch",
-                      "0.2 finish bookkeeping", "0.3 epilogue", "1 prep",
-                      "2 upload + dispatches", "2.06 place recognition", "5 marginalise",
-                      "3.2 fused solve (worker)"),
-    }
     root = tempfile.mkdtemp(prefix="okvis2_app_")
     launches = {}
     try:
@@ -2156,11 +2169,12 @@ def phase_app(card):
                 f"closures {lb.num_loop_closures}, capacity truncations "
                 f"{json.dumps(rec['truncations'])}, frames in flight after each dispatch (lag "
                 f"histogram) {json.dumps(lag)}")
-            log_split(tag + " (all frames)", stages[name], res["frames"])
+            log_split(tag + " (all frames)", APP_STAGES[name], res["frames"])
             assert res["frames"] == n_frames and rows == n_frames == len(est.state_order), rows
             assert ate < bar, f"app {name}: ATE {ate:.6f} m against a bar of {bar:.6f} m"
             assert launches[f"app {name}"]["harris_nms"] == n_frames * n_oct, launches
             if name == "sync":
+                app_rows = np.loadtxt(res["output"], delimiter=",", skiprows=1, ndmin=2)
                 assert kf == jax["keyframes"], (kf, jax["keyframes"])
                 info = rec["final_ba"]
                 log(f"{tag} final BA {rec['final_ba_ms']:.3f} ms: {info['states']} states "
@@ -2183,6 +2197,298 @@ def phase_app(card):
                     f"app pipelined: {share:.3f} of the frames ran with {APP_IN_FLIGHT} in "
                     f"flight: {rec['in_flight']}")
         log(f"[app] PNG decode {decode_ms:.3f} ms per image pair ({card})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, app_rows
+
+
+# Phase 15: the ROS2 bag replay, okvis2_torch.ros2.nodes.main_synchronous
+# (the reference's okvis_node_synchronous, the way ROS users run OKVIS2 on
+# a recorded dataset), at configs/euroc.yaml on phase 14's synchronous
+# folder (the APP_PERIOD s circle) written as rosbag2 bags by write_rosbag:
+# sqlite3 (.db3), and mcap with the messages in one uncompressed Chunk. The
+# node maps the config as the JAX node does (without the realtime budget's
+# fields and without a LoopClosureConfig; at euroc.yaml those fields are
+# the EstimatorConfig defaults anyway) and replays the first BAG_FRAMES
+# frames of the .db3 bag. The JAX node on the same bag
+# (tools/e2e_reference_jax.py bag, CPU, float32): "processed 20 frames, 906
+# landmarks", keyframes at frames 0 and 12, the estimator's 20 states at
+# an aligned ATE of 24.611 mm, no loop closure; truncated: the window's
+# landmarks 8 times, frame-to-frame rows once. Held: the streams, the
+# printed line (20 frames), the keyframes, the landmarks within max(3, 1 %)
+# of the JAX node's, the ATE at phase 8's rule, one Harris launch per frame
+# per octave.
+BAG_FRAMES = 20
+BAG_IMU_TOPIC = "/okvis/imu"
+BAG_IMAGE_TOPICS = ("/okvis/cam0/image_raw", "/okvis/cam1/image_raw")
+BAG_JAX = dict(ate_m=0.02461091995991429, keyframes=[0, 12], landmarks=906)
+
+
+class CdrWriter:
+    """Little-endian XCDR1 (ROS2's default encoding) with the alignment
+    that ``rosbag_reader.CdrReader`` reads: each primitive aligned to its
+    size from the start of the payload."""
+
+    def __init__(self):
+        self.buf = bytearray(b"\x00\x01\x00\x00")  # CDR_LE encapsulation
+
+    def put(self, fmt, v):
+        import struct
+
+        size = struct.calcsize(fmt)
+        self.buf += b"\x00" * ((-(len(self.buf) - 4)) % size)
+        self.buf += struct.pack("<" + fmt, v)
+
+    def string(self, s):
+        b = s.encode() + b"\x00"
+        self.put("I", len(b))
+        self.buf += b
+
+    def header(self, ns, frame_id):
+        """std_msgs/Header from integer nanoseconds."""
+        self.put("i", ns // 10**9)
+        self.put("I", ns % 10**9)
+        self.string(frame_id)
+
+
+def cdr_imu(ns, acc, gyr):
+    """sensor_msgs/msg/Imu: header, orientation (unknown: identity, zero
+    covariances), angular velocity, linear acceleration."""
+    w = CdrWriter()
+    w.header(ns, "imu")
+    for v in [0.0, 0.0, 0.0, 1.0] + [0.0] * 9 + list(gyr) + [0.0] * 9 + list(acc) + [0.0] * 9:
+        w.put("d", float(v))
+    return bytes(w.buf)
+
+
+def cdr_image(ns, img, frame_id):
+    """sensor_msgs/msg/Image, mono8, from a uint8 [H,W] image."""
+    w = CdrWriter()
+    w.header(ns, frame_id)
+    w.put("I", img.shape[0])
+    w.put("I", img.shape[1])
+    w.string("mono8")
+    w.put("B", 0)
+    w.put("I", img.shape[1])
+    w.put("I", img.size)
+    w.buf += np.ascontiguousarray(img, np.uint8).tobytes()
+    return bytes(w.buf)
+
+
+def write_rosbag(folder, path, storage):
+    """A rosbag2 bag of an EuRoC folder (``write_app_folder``'s): the IMU on
+    BAG_IMU_TOPIC as sensor_msgs/msg/Imu, each camera on BAG_IMAGE_TOPICS as
+    sensor_msgs/msg/Image in mono8, header stamps from the folder's integer
+    nanoseconds. ``storage`` "sqlite3" writes rosbag2's .db3 tables, "mcap"
+    an mcap v1 file with every schema, channel and message record in one
+    uncompressed Chunk. The messages go in the order EurocDatasetReader
+    streams the folder (its 5 ms IMU look-ahead, in the same float
+    arithmetic), each received at its stamp or 1 ns after the message
+    before it, whichever is later, so that replay by receive time gives
+    the reader's stream. Returns the number of messages."""
+    import struct
+    import zlib
+
+    from okvis2_torch.pipeline import png
+
+    with open(os.path.join(folder, "mav0", "imu0", "data.csv")) as f:
+        imu = [(int(v[0]), [float(x) for x in v[4:7]], [float(x) for x in v[1:4]])
+               for v in (ln.strip().split(",") for ln in f if not ln.startswith("#"))]
+    cams = []
+    for c in range(len(BAG_IMAGE_TOPICS)):
+        with open(os.path.join(folder, "mav0", f"cam{c}", "data.csv")) as f:
+            cams.append([(int(v[0]), os.path.join(folder, "mav0", f"cam{c}", "data", v[1].strip()))
+                         for v in (ln.strip().split(",") for ln in f if not ln.startswith("#"))])
+    assert all([r[0] for r in rows] == [r[0] for r in cams[0]] for rows in cams), "cameras unsynced"
+    msgs, ii = [], 0  # (topic index, receive ns, payload)
+    for k, (ns, _) in enumerate(cams[0]):
+        while ii < len(imu) and imu[ii][0] * 1e-9 <= ns * 1e-9 + 0.005:
+            msgs.append((0, imu[ii][0], cdr_imu(*imu[ii])))
+            ii += 1
+        for c in range(len(cams)):
+            msgs.append((1 + c, ns, cdr_image(ns, png.read_png(cams[c][k][1]), f"cam{c}")))
+    msgs += [(0, r[0], cdr_imu(*r)) for r in imu[ii:]]
+    prev = -1
+    for i, (ti, ns, data) in enumerate(msgs):
+        prev = max(ns, prev + 1)
+        msgs[i] = (ti, prev, data)
+    topics = [(BAG_IMU_TOPIC, "sensor_msgs/msg/Imu")] + [
+        (t, "sensor_msgs/msg/Image") for t in BAG_IMAGE_TOPICS]
+    if os.path.exists(path):
+        os.remove(path)
+    if storage == "sqlite3":
+        import sqlite3
+
+        conn = sqlite3.connect(path)
+        conn.execute("CREATE TABLE topics (id INTEGER PRIMARY KEY, name TEXT NOT NULL, type TEXT "
+                     "NOT NULL, serialization_format TEXT NOT NULL, offered_qos_profiles TEXT "
+                     "NOT NULL)")
+        conn.execute("CREATE TABLE messages (id INTEGER PRIMARY KEY, topic_id INTEGER NOT NULL, "
+                     "timestamp INTEGER NOT NULL, data BLOB NOT NULL)")
+        conn.execute("CREATE INDEX timestamp_idx ON messages (timestamp ASC)")
+        conn.executemany("INSERT INTO topics VALUES (?, ?, ?, 'cdr', '')",
+                         [(i + 1, name, typ) for i, (name, typ) in enumerate(topics)])
+        conn.executemany("INSERT INTO messages VALUES (?, ?, ?, ?)",
+                         [(i + 1, ti + 1, ns, data) for i, (ti, ns, data) in enumerate(msgs)])
+        conn.commit()
+        conn.close()
+        return len(msgs)
+    assert storage == "mcap", storage
+    from okvis2_torch.ros2.rosbag_reader import MCAP_MAGIC
+
+    def record(op, body):
+        return bytes([op]) + struct.pack("<Q", len(body)) + body
+
+    def mstr(s):
+        b = s.encode()
+        return struct.pack("<I", len(b)) + b
+
+    records = b"".join(
+        record(0x03, struct.pack("<H", i + 1) + mstr(typ) + mstr("ros2msg") + struct.pack("<I", 0))
+        + record(0x04, struct.pack("<HH", i + 1, i + 1) + mstr(name) + mstr("cdr")
+                 + struct.pack("<I", 0))
+        for i, (name, typ) in enumerate(topics))
+    records += b"".join(record(0x05, struct.pack("<HIQQ", ti + 1, seq, ns, ns) + data)
+                        for seq, (ti, ns, data) in enumerate(msgs))
+    chunk = (struct.pack("<QQQI", msgs[0][1], msgs[-1][1], len(records), zlib.crc32(records))
+             + mstr("") + struct.pack("<Q", len(records)) + records)
+    with open(path, "wb") as f:
+        f.write(MCAP_MAGIC)
+        f.write(record(0x01, mstr("ros2") + mstr("okvis2_torch")))
+        f.write(record(0x06, chunk))
+        f.write(record(0x0F, struct.pack("<I", 0)))  # DataEnd
+        f.write(record(0x02, struct.pack("<QQI", 0, 0, 0)))  # Footer
+        f.write(MCAP_MAGIC)
+    return len(msgs)
+
+
+def check_bag_streams(folder, bags, tol):
+    """Each bag's RosbagReader stream against EurocDatasetReader's stream
+    of ``folder``: the same events in the same order, images bit for bit,
+    times within 1e-9 s, IMU values within 5e-10 (phase 14's round-trip
+    bar); the bags' streams equal to each other exactly. Returns the
+    event counts and the largest time and IMU differences."""
+    import itertools
+
+    from okvis2_torch.pipeline.dataset import EurocDatasetReader
+    from okvis2_torch.ros2.rosbag_reader import RosbagReader
+
+    readers = [RosbagReader(b, list(BAG_IMAGE_TOPICS), BAG_IMU_TOPIC, tol) for b in bags]
+    streams = [EurocDatasetReader(folder, len(BAG_IMAGE_TOPICS)).stream(tol)]
+    streams += [r.stream() for r in readers]
+    counts, d_t, d_v = {"imu": 0, "images": 0}, 0.0, 0.0
+    for evs in itertools.zip_longest(*streams):
+        assert None not in evs, f"the streams part after {counts}"
+        ref, kind = evs[0], evs[0][0]
+        assert all(e[0] == kind for e in evs), ([e[0] for e in evs], counts)
+        counts[kind] += 1
+        for e in evs[1:]:
+            d_t = max(d_t, abs(e[1] - ref[1]))
+            if kind == "imu":
+                d_v = max(d_v, float(np.abs(np.concatenate([e[2] - ref[2], e[3] - ref[3]])).max()))
+            else:
+                assert len(e[2]) == len(ref[2]) and all(
+                    g.dtype == w.dtype == np.float32 and np.array_equal(g, w)
+                    for g, w in zip(e[2], ref[2])), counts
+        for e in evs[2:]:
+            assert e[1] == evs[1][1] and all(np.array_equal(a, b) for a, b in
+                                             zip(e[2:], evs[1][2:])), counts
+    for r in readers:
+        r.close()
+    assert d_t < 1e-9 and d_v <= 5e-10 * (1 + 1e-6), (d_t, d_v)
+    return counts, d_t, d_v
+
+
+def phase_bag(card, app_rows):
+    """Phase 15: phase 14's synchronous folder written as .db3 and .mcap
+    bags, their streams held to the folder's and to each other, then the
+    node's bag replay on the card (``nodes.main_synchronous``, the first
+    BAG_FRAMES frames of the .db3 bag) against the JAX node on the same bag
+    (BAG_JAX): the printed frame count, keyframes, landmarks, ATE, one
+    Harris launch per frame per octave; frames/s, the stage split and the
+    gap to phase 14's app poses (``app_rows``) at the same stamps printed.
+    Returns the kernels' launch counts over the replay."""
+    import io
+    import shutil
+    import tempfile
+
+    from okvis2_torch.config import read_config_file
+    from okvis2_torch.graph import estimator as est_mod
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.pipeline import slam as slam_mod
+    from okvis2_torch.pipeline.trajectory import ate_rmse
+    from okvis2_torch.ros2 import nodes
+    from okvis2_torch.utils.timing import Timing
+
+    tag, jax = "[ros2 bag]", BAG_JAX
+    root = tempfile.mkdtemp(prefix="okvis2_bag_")
+    try:
+        tol = read_config_file(APP_CONFIG, device="cpu").camera_rig.timestamp_tolerance
+        folder = os.path.join(root, "euroc")
+        t0 = time.perf_counter()
+        gt, _, _ = write_app_folder(folder, APP_FRAMES, APP_PERIOD)
+        digest = app_folder_digest(folder)
+        assert digest == APP_JAX["sync"]["folder_digest"], "not phase 14's folder"
+        bags, n_msgs = {}, {}
+        for storage, ext in (("sqlite3", "db3"), ("mcap", "mcap")):
+            bags[storage] = os.path.join(root, f"circle.{ext}")
+            n_msgs[storage] = write_rosbag(folder, bags[storage], storage)
+        log(f"{tag} phase 14's folder ({len(gt)} frames, a {APP_PERIOD:g} s circle) as bags: "
+            + ", ".join(f"{s} {n_msgs[s]} messages {os.path.getsize(b)} bytes"
+                        for s, b in bags.items())
+            + f" ({time.perf_counter() - t0:.2f} s with the folder)")
+        t0 = time.perf_counter()
+        counts, d_t, d_v = check_bag_streams(folder, [bags["sqlite3"], bags["mcap"]], tol)
+        log(f"{tag} the .db3 and .mcap streams equal each other and the EuRoC reader's: "
+            f"{counts['images']} image pairs bit for bit, {counts['imu']} IMU samples within "
+            f"{d_v:.1e}, times within {d_t:.1e} s ({time.perf_counter() - t0:.2f} s, host)")
+        assert counts["images"] == APP_FRAMES, counts
+
+        argv = [APP_CONFIG, bags["sqlite3"], "--max-frames", str(BAG_FRAMES)]
+        out = io.StringIO()
+        with recorded_app_system(slam_mod, est_mod, sync=torch.cuda.synchronize) as rec:
+            torch.cuda.synchronize()
+            harris_nms_cuda.launches = 0
+            Timing.reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = nodes.main_synchronous(argv, device=DEVICE)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {"ros2 bag": {"harris_nms": harris_nms_cuda.launches}}
+        printed = out.getvalue().strip()
+        slam = rec["systems"][0]
+        est = slam.estimator
+        n_oct = slam.frontend.cfg.detection.octaves
+        traj = [(est.states[s].t, np.asarray(est.states[s].pose)) for s in est.state_order]
+        ate = ate_rmse(traj, gt[:BAG_FRAMES], align=True)
+        kf = [est.state_order.index(s) for s in rec["kf_sids"]]
+        steady = rec["frame_s"][APP_WARMUP:]
+        app_at = {int(r[0]): r[1:4] for r in app_rows}
+        gaps = [np.linalg.norm(p[:3] - app_at[int(round(t * 1e9))]) for t, p in traj
+                if int(round(t * 1e9)) in app_at]
+        bar = 1.5 * jax["ate_m"] + 0.005
+        lm_slack = max(3, 0.01 * jax["landmarks"])
+        log(f"{tag} the node printed {printed!r} and returned {rc} in {wall_s:.2f} s; "
+            f"process_frame {len(steady) / sum(steady):.3f} frames/s over frames "
+            f"{APP_WARMUP + 1}-{len(rec['frame_s'])} (median {statistics.median(steady) * 1e3:.3f} "
+            f"ms; first {rec['frame_s'][0] * 1e3:.1f} ms), harris_nms launches "
+            f"{harris_nms_cuda.launches} ({len(rec['frame_s'])} frames x {n_oct} octave) ({card})")
+        log(f"{tag} ATE {ate:.6f} m (bar {bar:.6f}; the JAX node on the same bag "
+            f"{jax['ate_m']:.6f}), keyframes at frames {kf} (JAX {jax['keyframes']}), landmarks "
+            f"{len(est.landmarks)} (JAX {jax['landmarks']}, slack {lm_slack:g}), loop closures "
+            f"{slam.loop_backend.num_loop_closures}, capacity truncations "
+            f"{json.dumps(rec['truncations'])}; position gap to phase 14's app poses (after its "
+            f"final BA) at the {len(gaps)} shared stamps: median "
+            f"{statistics.median(gaps) * 1e3:.3f} mm, largest {max(gaps) * 1e3:.3f} mm")
+        log_split(tag + " (all frames)", APP_STAGES["sync"], len(rec["frame_s"]))
+        assert rc == 0 and printed == (f"processed {BAG_FRAMES} frames, "
+                                       f"{len(est.landmarks)} landmarks"), (rc, printed)
+        assert len(rec["frame_s"]) == BAG_FRAMES == len(est.state_order), rec["frame_s"]
+        assert kf == jax["keyframes"], (kf, jax["keyframes"])
+        assert abs(len(est.landmarks) - jax["landmarks"]) <= lm_slack, len(est.landmarks)
+        assert ate < bar, f"ros2 bag: ATE {ate:.6f} m against a bar of {bar:.6f} m"
+        assert launches["ros2 bag"]["harris_nms"] == BAG_FRAMES * n_oct, launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -2229,8 +2535,11 @@ def main():
     done("12 slam cnn")
     phase_sharded_final_ba(card, fba_pack)
     done("13 sharded final BA")
-    launches_slam.update(phase_app(card))
+    launches_app, app_rows = phase_app(card)
+    launches_slam.update(launches_app)
     done("14 app")
+    launches_slam.update(phase_bag(card, app_rows))
+    done("15 ros2 bag replay")
     for k in kernels:
         by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
         by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})

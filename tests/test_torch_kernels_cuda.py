@@ -4,7 +4,8 @@ and the tracking program and the synchronous and pipelined SLAM loops
 the CPU; Fast-SCNN and the textured world on the card against the CPU; the
 sharded solve over NCCL at world size 1 against the unsharded one; the
 dataset app's config reader, PNG round trip and a 5-frame app run on the
-card at configs/euroc.yaml.
+card at configs/euroc.yaml; the ROS2 node's 5-frame bag replay there, on
+the card against the CPU.
 
 A hand-written CUDA kernel has no CPU mode, so every test here is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it also
@@ -901,3 +902,53 @@ def test_app_five_frames_on_card(cuda, tmp_path):
     assert harris_cuda.harris_nms_cuda.launches - n0 == 5 * n_oct
     rows = np.loadtxt(res["output"], delimiter=",", skiprows=1, ndmin=2)
     assert rows.shape == (5, 8) and np.isfinite(rows).all()
+
+
+def test_bag_replay_card_matches_cpu(cuda, tmp_path, monkeypatch, capsys):
+    """``nodes.main_synchronous`` (the ROS2 node's bag replay, ``device``
+    left at None) on a rosbag2 .db3 bag of the first 5 frames of phase 14's
+    folder at configs/euroc.yaml, and the same run on the CPU in float32:
+    the printed line, one Harris launch per frame per octave on the card and
+    none on the CPU, the same keyframe flags on every frame, frames 0-1
+    (before a descriptor bit that ties to rounding can part the maps, see
+    ``test_slam_loop_card_matches_cpu``) within 1e-4 m with equal landmark
+    counts, every frame within 0.05 m."""
+    from chip_smoke import write_rosbag
+    from okvis2_torch.pipeline import slam as slam_mod
+    from okvis2_torch.ros2 import nodes
+
+    _euroc_folder(str(tmp_path / "euroc"), 5)
+    bag = str(tmp_path / "euroc.db3")
+    write_rosbag(str(tmp_path / "euroc"), bag, "sqlite3")
+    runs = {}
+
+    class Tracked(slam_mod.SlamSystem):
+        def process_frame(self):
+            out = super().process_frame()
+            est = self.estimator
+            runs[self.device.type].append((self.tracking.is_keyframe,
+                                           np.array(est.states[self.tracking.id].pose),
+                                           len(est.landmarks)))
+            return out
+
+    monkeypatch.setattr(slam_mod, "SlamSystem", Tracked)
+    printed, launches = {}, {}
+    for device in (None, "cpu"):
+        name = "cpu" if device else "cuda"
+        runs[name] = []
+        n0 = harris_cuda.harris_nms_cuda.launches
+        assert nodes.main_synchronous([EUROC_YAML, bag, "--max-frames", "5"], device=device) == 0
+        torch.cuda.synchronize()
+        launches[name] = harris_cuda.harris_nms_cuda.launches - n0
+        printed[name] = capsys.readouterr().out.strip().splitlines()[-1]
+    card, host = runs["cuda"], runs["cpu"]
+    d_pos = [float(np.abs(a[1][:3] - b[1][:3]).max()) for a, b in zip(card, host)]
+    print(f"card vs CPU per frame: pose difference {d_pos} m, landmarks "
+          f"{[a[2] for a in card]} / {[b[2] for b in host]}")
+    assert len(card) == len(host) == 5
+    assert printed["cuda"] == f"processed 5 frames, {card[-1][2]} landmarks"
+    assert printed["cpu"] == f"processed 5 frames, {host[-1][2]} landmarks"
+    assert launches == {"cuda": 5, "cpu": 0}, launches  # configs/euroc.yaml: one octave
+    assert [a[0] for a in card] == [b[0] for b in host]
+    assert max(d_pos[:2]) < 1e-4 and [a[2] for a in card[:2]] == [b[2] for b in host[:2]]
+    assert max(d_pos) < 0.05

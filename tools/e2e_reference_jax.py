@@ -75,6 +75,19 @@ gives its ATE (no reprojection RMS: the sharded path computes no
 diagnostics). Phase 13's reference: ``40 8 circle 2 0 0 4096 1 2 1 0 sync 1
 stars 2``.
 
+Bag mode, phase 15's reference (the ROS2 node's bag replay):
+
+    env JAX_PLATFORMS=cpu python tools/e2e_reference_jax.py bag [n_frames]
+
+writes phase 14's synchronous folder (the circle, with
+``write_app_folder``) and a rosbag2 .db3 bag of it with chip_smoke.py's
+``write_rosbag``, and runs ``okvis2_tpu.ros2.nodes.main_synchronous`` on
+the bag with ``--max-frames`` ``n_frames`` (default 20), recorded by
+``recorded_app_system``. The JSON line gives the folder's digest, the
+node's printed line and return code, the keyframes (by frame), landmarks,
+the estimator's states' aligned ATE against the ground truth, loop
+closures and capacity truncations.
+
 App mode, phase 14's reference (the dataset app at ``configs/euroc.yaml``):
 
     env JAX_PLATFORMS=cpu python tools/e2e_reference_jax.py app \
@@ -116,6 +129,8 @@ EUROC_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file
 def main(argv):
     if len(argv) > 1 and argv[1] == "app":
         return app_main(argv[1:])
+    if len(argv) > 1 and argv[1] == "bag":
+        return bag_main(argv[1:])
     n_frames = int(argv[1]) if len(argv) > 1 else 60
     rate = float(argv[2]) if len(argv) > 2 else 20.0
     trajectory = argv[3] if len(argv) > 3 else "default"
@@ -384,6 +399,52 @@ def app_main(argv):
     # threads (okvis2_tpu/pipeline/full_graph.py:1140): the interpreter's
     # teardown aborts one still inside XLA, so wait for them
     for th in threading.enumerate():
+        if th is not threading.current_thread():
+            th.join()
+
+
+def bag_main(argv):
+    """Phase 15's reference: the JAX node's bag replay on phase 14's
+    synchronous folder written as a .db3 bag."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    n_frames = int(argv[1]) if len(argv) > 1 else 20
+    from chip_smoke import (APP_FRAMES, APP_PERIOD, app_folder_digest, recorded_app_system,
+                            write_app_folder, write_rosbag)
+    from okvis2_tpu.graph import estimator as est_mod
+    from okvis2_tpu.pipeline import slam as slam_mod
+    from okvis2_tpu.pipeline.trajectory import ate_rmse
+    from okvis2_tpu.ros2 import nodes
+
+    root = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        folder, bag = os.path.join(root, "euroc"), os.path.join(root, "circle.db3")
+        gt, _, _ = write_app_folder(folder, APP_FRAMES, APP_PERIOD)
+        out = {"frames": n_frames, "config": "configs/euroc.yaml", "period_s": APP_PERIOD,
+               "folder_digest": app_folder_digest(folder),
+               "messages": write_rosbag(folder, bag, "sqlite3")}
+        printed = io.StringIO()
+        with recorded_app_system(slam_mod, est_mod) as rec, contextlib.redirect_stdout(printed):
+            out["rc"] = nodes.main_synchronous([EUROC_YAML, bag, "--max-frames", str(n_frames)])
+        slam = rec["systems"][0]
+        est = slam.estimator
+        traj = [(est.states[s].t, np.asarray(est.states[s].pose)) for s in est.state_order]
+        out.update(printed=printed.getvalue().strip(),
+                   keyframe_frames=[est.state_order.index(s) for s in rec["kf_sids"]],
+                   landmarks=len(est.landmarks), states=len(est.state_order),
+                   ate_rmse_m=ate_rmse(traj, gt[:n_frames], align=True),
+                   loop_closures=slam.loop_backend.num_loop_closures,
+                   truncations=rec["truncations"], wall_s=time.perf_counter() - t0)
+        print(json.dumps(out), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for th in threading.enumerate():  # as in app_main
         if th is not threading.current_thread():
             th.join()
 
