@@ -35,7 +35,7 @@ hand-written kernel against its plain PyTorch version:
                keypoints, map capacity 1024, a 12-slot window, the
                realtime budget at 1/200 s), fed through
                add_imu_measurement / add_images / process_frame, in two
-               drives (SLAM_DRIVES): the bench's 60 frames at 20 Hz, and
+               drives (SLAM_DRIVES): 40 of the bench's 60 frames at 20 Hz, and
                one circle of 40 frames at 8 Hz with 2 window keyframes,
                where keyframes become pose-graph factors. Each checks the
                ATE against ground truth and the JAX package's own ATE on
@@ -50,7 +50,7 @@ hand-written kernel against its plain PyTorch version:
                solve of each frame runs on a worker thread and stream and
                appends, on the card, the match rows of every frame still in
                flight; bookkeeping runs one or two frames behind
-               (PIPELINED_DRIVES): the bench's 60 frames with the loop's own
+               (PIPELINED_DRIVES): 40 of the bench's 60 frames with the loop's own
                lag, and 30 of them with two frames kept in flight. Each
                checks what phase 8 checks, and that the appended rows never
                exceed the observation slots; the second that every solve
@@ -67,14 +67,16 @@ hand-written kernel against its plain PyTorch version:
                split and the full-graph solve (ms, LM iterations, device
                kernels, capacities S/L/O/R); at that closure the full-graph
                solve queued on the solve worker is held against the inline
-               one (QUEUED_FG_TOL_M, QUEUED_FG_TOL_HP). The pipelined loop (its own lag) must make as many
+               one (QUEUED_FG_TOL_M, QUEUED_FG_TOL_HP, QUEUED_FG_F32_TOL). The
+               pipelined loop (its own lag) must make as many
                closures and drift-budget rejections as the JAX run at the
                same schedule, at phase 9's ATE rule. Launch counts are zeroed
                just before each drive and read just after
  11. multi-session  phase 10's synchronous session ended as the app ends
-               it (finish, the final BA, save_map), then a second session
-               in each loop that loads the map and relocalises
-               (MULTI_SESSION)
+               it (finish, the final BA, save_map), its pack solved again
+               in float32 (bit for bit) and its overhead image drawn, then
+               a second session in each loop that loads the map and
+               relocalises (MULTI_SESSION)
  12. slam cnn  CNN suppression (SlamSystem(cnn_params=...), the committed
                Fast-SCNN weights) on the textured world at phase 8's
                configuration, in both loops (CNN_DRIVES): keyframes and
@@ -102,6 +104,19 @@ hand-written kernel against its plain PyTorch version:
                replayed on the card against the JAX node on the same bag
                (keyframes, landmarks, ATE, the printed frame count); launch
                counts zeroed just before the replay
+ 16. native loader  the EuRoC prefetcher (okvis2_torch.pipeline.native_loader:
+               threads N frames ahead, zlib and okvis2_torch/native/
+               dataloader.cpp, built with the host compiler) on phase 14's
+               folders and a Paeth-filtered copy: open_euroc gives the
+               native reader, its streams equal the Python reader's bit
+               for bit; decode ms per pair of both readers, the main
+               thread's wait per frame
+ 17. fast-scnn  the .pth importer (the checkpoint layout's mirror with
+               random weights, converted and loaded; logits on the card
+               against the mirror's), one float64 training step card
+               against CPU at full width, and train() on the card at full
+               width in float32 against the JAX trainer's accuracies; the
+               trained weights saved, reloaded and segmenting as trained
 
 Every check raises on failure, so any failing phase exits non-zero. The
 line before the last is the kernels' JSON record; the last line is
@@ -147,18 +162,19 @@ TRACK_MAX_POS_M, TRACK_MAX_ROT_DEG = 0.21, 1.0
 # configuration (tools/e2e_reference_jax.py, CPU, float32). The ATE bars:
 # below 0.10 m (tests/test_e2e_vio.py:21) and at most 1.5x the JAX ATE
 # plus 5 mm.
-# - "slam": the bench's frame count and warm-up (bench.py:55, :194) on the
-#   default trajectory. The JAX run makes 1 keyframe in these 60 frames (4
-#   in 400, where the star field ends) and so no pose-graph edge:
-#   marginalisation shows here as IMU-frame elimination under the window
-#   bound.
+# - "slam": the first 40 of the bench's 60 frames (bench.py:55; 60 until
+#   the phases' time grew with phases 16-17), its warm-up (:194), on the
+#   default trajectory. The JAX run ("40 20 default 5") makes 1 keyframe in
+#   these frames (4 in 400, where the star field ends) and so no pose-graph
+#   edge: marginalisation shows here as IMU-frame elimination under the
+#   window bound. ATE 3.039 mm (3.414 mm on 60 frames).
 # - "slam pose graph": one circle (5 s at 8 Hz) with 2 window keyframes in
 #   place of 5, so that keyframes leave the window as pose-graph factors
 #   (the JAX run: keyframes at frames 0, 8, 18, 26 and 37; edges between
 #   states 8-0, 18-8 and 26-18).
 SLAM_DRIVES = {
-    "slam": dict(frames=60, rate=20.0, trajectory="default", num_keyframes=5, warmup=12,
-                 jax_ate_m=0.0034135940286723417, min_edges=0, profile=True),
+    "slam": dict(frames=40, rate=20.0, trajectory="default", num_keyframes=5, warmup=12,
+                 jax_ate_m=0.0030394149898460895, min_edges=0, profile=True),
     "slam pose graph": dict(frames=40, rate=8.0, trajectory="circle", num_keyframes=2,
                             warmup=4, jax_ate_m=0.004132954691568989, min_edges=1, profile=False),
 }
@@ -178,24 +194,28 @@ SLAM_MIN_LANDMARKS = 50
 # pipelined loop on the same frames and schedule (tools/e2e_reference_jax.py,
 # CPU, float32) setting the ATE bar by phase 8's rule (1.5x the JAX ATE plus
 # 5 mm, and below 0.10 m where the JAX ATE is). How far behind the host's
-# bookkeeping runs changes the result: the JAX loop on these 60 frames
-# reaches ATE 5.737 mm with one frame in flight at every dispatch (its own
-# lag on the CPU, "60 20 default 5 1"), 0.347 m with two ("... 1 1"), and
-# 0.119 m on the first 30 frames with three ("30 20 default 5 1 2 8192").
-# - "slam pipelined": the bench's 60 frames, warm-up 12 (bench.py:189), the
+# bookkeeping runs changes the result: the JAX loop on the bench's 60
+# frames reaches ATE 5.737 mm with one frame in flight at every dispatch
+# (its own lag on the CPU, "60 20 default 5 1"), 0.347 m with two ("... 1
+# 1"), and 0.119 m on the first 30 frames with three ("30 20 default 5 1 2
+# 8192").
+# - "slam pipelined": the first 40 of the bench's 60 frames (60 until the
+#   phases' time grew with phases 16-17), warm-up 12 (bench.py:189), the
 #   loop's own lag. On the card a solve takes longer than a frame's host
 #   work, so from the second frame on two frames are in flight at each
 #   dispatch: the schedule of the JAX run with one frame kept in flight
-#   (keyframes at frames 0, 1, 2, 47). The drive checks that it ran so.
+#   ("40 20 default 5 1 1": ATE 0.166904 m in 3 of 3 runs, keyframes at
+#   frames 0, 1, 2; on 60 frames 0.347 m, keyframes 0, 1, 2, 47). The drive
+#   checks that it ran so.
 # - "slam pipelined deep lag": the first 30 of those frames with two frames
 #   kept in flight (_force_min_pending=2), so that every solve from the
 #   third frame on appends three sets of match rows on the card; with 8192
 #   observation slots in place of 4096, where the appended rows overflow
 #   in both packages (4251 rows in the JAX run; keyframes at frames 0-3).
 PIPELINED_DRIVES = {
-    "slam pipelined": dict(frames=60, rate=20.0, trajectory="default", num_keyframes=5,
+    "slam pipelined": dict(frames=40, rate=20.0, trajectory="default", num_keyframes=5,
                            warmup=12, min_pending=0, in_flight=2, obs_slots=4096,
-                           jax_ate_m=0.34743515642534833, min_edges=0, profile=True),
+                           jax_ate_m=0.1669036232354134, min_edges=0, profile=True),
     "slam pipelined deep lag": dict(frames=30, rate=20.0, trajectory="default",
                                     num_keyframes=5, warmup=6, min_pending=2, in_flight=3,
                                     obs_slots=8192, jax_ate_m=0.11948972192121458, min_edges=0,
@@ -230,13 +250,14 @@ LOOP_DRIVES = {
         pipelined=True),
 }
 # the full-graph solve queued on the solve worker against the inline one on
-# the same state, both in float64: poses within 1e-6 m, landmarks as unit
+# the same state, in float64: poses within 1e-6 m, landmarks as unit
 # homogeneous vectors within 1e-6 (a landmark near infinity, w ~ 1e-6,
-# turns a last-bit difference into metres in its point). In float32 the
-# solve's scatter-adds (index_add_) sum in another order on every run and
-# its 15 LM iterations carry that to 4.8e-7-2.3e-5 m in poses on the card
-# (two runs), so the float32 pair is logged, not held
+# turns a last-bit difference into metres in its point); in float32 (as
+# the loop runs it) within QUEUED_FG_F32_TOL: bit for bit, since the dense
+# path reduces per landmark in an order it fixes (before, its scatter-adds
+# summed in another order on every run: 4.8e-7-2.3e-5 m in poses)
 QUEUED_FG_TOL_M, QUEUED_FG_TOL_HP = 1e-6, 1e-6
+QUEUED_FG_F32_TOL = 0.0
 QUEUED_FG_F64_ITERATIONS = 5
 # phase 11: multi-session, in the app's order (app_synchronous.py:115-141)
 # on phase 10's synchronous session: finish(), the final BA at its defaults
@@ -260,11 +281,12 @@ QUEUED_FG_F64_ITERATIONS = 5
 #   26.157 mm from the truth) and 19 (at finish()): after the first the
 #   loop drifts off again by metres, as the JAX pipelined loop diverges on
 #   this circle at this lag without a map (ROADMAP C), so the drive holds
-#   the first relocalisation and logs the rest. Its keyframe is held
-#   within 2 frames of the JAX run's: the map varies from run to run (the
-#   full-graph solve and the final BA reduce with index_add_ in float32,
-#   ~1e-5 m) and this diverging loop carries that into its decisions; two
-#   card runs of the same tree relocalised first on keyframes 7 and 6.
+#   the first relocalisation and logs the rest. Its keyframe is held to the
+#   JAX run's (keyframe_slack 0). Before the full-graph solve and the final
+#   BA reduced in a fixed order, the map varied by ~1e-5 m from run to run
+#   (index_add_ in float32) and this diverging loop carried that into its
+#   decisions: two card runs of one tree relocalised first on keyframes 7
+#   and 6, and the slack was 2.
 # The pose bars: 1.5x the JAX error plus 5 mm (phase 8's rule).
 MULTI_SESSION = dict(
     session="slam loop closure", start_s=2.5, jax_fba_ate_m=0.004765339874524123,
@@ -274,15 +296,14 @@ MULTI_SESSION = dict(
                               jax_first_error_m=0.01157757889056699,
                               jax_rms_from_first_m=0.014438015471071016),
         "multi-session pipelined": dict(pipelined=True, jax_reloc_keyframes=[7, 19],
-                                        keyframe_slack=2,
+                                        keyframe_slack=0,
                                         jax_first_error_m=0.02615715336374289,
                                         jax_rms_from_first_m=None),
     })
 # the final BA's pack solved again in float64 on the card and on the CPU
 # from identical inputs, at QUEUED_FG_F64_ITERATIONS: poses within 1e-6 m,
-# landmarks as unit homogeneous vectors within 1e-6 (phase 10's rule; the
-# float32 solve at these capacities reduces with index_add_, whose order
-# varies run to run)
+# landmarks as unit homogeneous vectors within 1e-6 (phase 10's rule); and
+# again in float32 on the card, equal to the final BA's solve bit for bit
 FBA_F64_TOL_M, FBA_F64_TOL_HP = 1e-6, 1e-6
 
 
@@ -353,7 +374,7 @@ FBA_ITERATIONS = 30
 # the JAX pipelined loop at the card's schedule drifted 1.7 m). The JAX app
 # on the same folders (tools/e2e_reference_jax.py app, CPU, float32):
 APP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "euroc.yaml")
-APP_FRAMES, APP_PIPELINED_FRAMES, APP_RATE, APP_WARMUP = 40, 30, 20.0, 5
+APP_FRAMES, APP_PIPELINED_FRAMES, APP_RATE, APP_WARMUP = 40, 20, 20.0, 5
 APP_PERIOD = 2.5
 # - synchronous (--sync --final-ba --save-map): ATE 19.828 mm, keyframes at
 #   frames 0, 12, 24, 37, 1775 landmarks, no loop closure (place
@@ -361,11 +382,13 @@ APP_PERIOD = 2.5
 #   window's landmarks 28 times, frame-to-frame rows 2; the final BA on 6
 #   states and 1563 landmarks, reprojection RMS 3.515 px; the map holds 1775
 #   landmarks;
-# - pipelined, one frame kept in flight (the card's schedule), the first 30
-#   frames: ATE 16.422 mm, keyframes at frames 0, 1, 2, in 3 of 5 runs; the
-#   other two, run beside other work on the CPU, kept other frames (0, 1,
-#   2, 13, 15: 82.059 mm; 0, 1, 2, 14: 182.579 mm): the JAX loop's lagged
-#   decisions follow its threads' timing. The bar is the median run's.
+# - pipelined, one frame kept in flight (the card's schedule), the first
+#   APP_PIPELINED_FRAMES frames (20; 30 until the phases' time grew with
+#   phases 16-17; tools/e2e_reference_jax.py app 40 20 1): ATE 1.423 mm,
+#   keyframes at frames 0, 1, 2, in 3 of 3 runs (on the first 30 frames:
+#   16.422 mm in 3 of 5 runs; the other two, run beside other work on the
+#   CPU, kept other frames, 82.059 and 182.579 mm: the JAX loop's lagged
+#   decisions follow its threads' timing).
 # Held: the folders' digests, the CSV's rows (one per state), the ATE at
 # phase 8's rule (phase 9's for the pipelined app), the synchronous
 # keyframes, the final BA's states and its RMS at 1.5x the JAX app's (phase
@@ -376,7 +399,7 @@ APP_JAX = {
     "sync": dict(ate_m=0.01982753423110339, keyframes=[0, 12, 24, 37], final_ba_states=6,
                  final_ba_rms_px=3.5146372318267822,
                  folder_digest="7162b6adfbc6a6308eb42be65d63a88dd095731b0a688c83c410f16897cb2aea"),
-    "pipelined": dict(ate_m=0.016421931895869393, keyframes=[0, 1, 2], min_pending=1,
+    "pipelined": dict(ate_m=0.001422952393799762, keyframes=[0, 1, 2], min_pending=1,
                       folder_digest="a39a610a32bcf6ada31a301527ee12f5fb089aecd45d7125fad732d212f99d46"),
 }
 # the pipelined app runs at the loop's own lag: on the card two frames in
@@ -1191,13 +1214,13 @@ def queued_against_inline(tag, lb, fg_log):
     """Wrap ``lb.optimise_full_graph`` so that each closure's full-graph
     solve runs inline (the call the loop made, whose result stays) and, on
     the state before it, again queued on the estimator's solve worker and
-    applied by ``apply_pending_full_graph``: in float32 as the loop runs it
-    (the two differ where the solve's scatter-adds sum in another order,
-    logged), and both ways again in float64 at QUEUED_FG_F64_ITERATIONS LM
-    iterations (the queue, the worker's stream and the apply are the same
-    at any count; a float64 solve takes far longer on the card), where the
-    queued solve must give the inline one's poses within QUEUED_FG_TOL_M
-    and its landmarks (unit homogeneous vectors) within QUEUED_FG_TOL_HP.
+    applied by ``apply_pending_full_graph``: in float32 as the loop runs it,
+    where the two must agree within QUEUED_FG_F32_TOL, and both ways again
+    in float64 at QUEUED_FG_F64_ITERATIONS LM iterations (the queue, the
+    worker's stream and the apply are the same at any count; a float64
+    solve takes far longer on the card), where the queued solve must give
+    the inline one's poses within QUEUED_FG_TOL_M and its landmarks (unit
+    homogeneous vectors) within QUEUED_FG_TOL_HP.
     The wall time of each run, the inline solve's capacities and iterations, and the device
     kernels of one more float32 solve of the same pack under the profiler
     go to ``fg_log``; the extra runs are left out of the stage timers and
@@ -1285,10 +1308,12 @@ def queued_against_inline(tag, lb, fg_log):
             f"capacities S/L/O/R {info['S']}/{info['L']}/{info['O']}/{info['R']} (used "
             f"{list(info['used'])}), {n_kernels} device kernels per solve; queued vs inline "
             f"(poses m, landmarks as unit homogeneous vectors): float32 {d32[0]:.3e} "
-            f"{d32[1]:.3e}, float64 at {QUEUED_FG_F64_ITERATIONS} iterations {d64[0]:.3e} "
+            f"{d32[1]:.3e} (bar {QUEUED_FG_F32_TOL:g}), float64 at {QUEUED_FG_F64_ITERATIONS} "
+            f"iterations {d64[0]:.3e} "
             f"{d64[1]:.3e} (bars {QUEUED_FG_TOL_M:g}, {QUEUED_FG_TOL_HP:g}; inline "
             f"{inline64_ms:.3f} ms, queued {queued64_ms:.3f} ms)")
         assert d64[0] < QUEUED_FG_TOL_M and d64[1] < QUEUED_FG_TOL_HP, d64
+        assert d32[0] <= QUEUED_FG_F32_TOL and d32[1] <= QUEUED_FG_F32_TOL, d32
         return stats
 
     lb.optimise_full_graph = compare
@@ -1448,7 +1473,7 @@ def phase_multi_session(card, run, gt, online_ate):
 
     def solve_and_keep(prob, cameras, imu_params, config):
         out = solve(prob, cameras, imu_params, config)
-        captured.append((prob, out[1]))
+        captured.append((prob, out[1], out[0]))
         return out
 
     fba.solve_window = solve_and_keep
@@ -1460,7 +1485,7 @@ def phase_multi_session(card, run, gt, online_ate):
         fba_ms = (time.perf_counter() - t0) * 1e3
     finally:
         fba.solve_window = solve
-    prob, stats = captured[0]
+    prob, stats, first = captured[0]
     ate = ate_rmse(est.trajectory(), gt, align=True)
     loop_edges = [[e.id_i, e.id_j] for e in est.pose_graph_edges if e.kind == "loop"]
     bar_ate = min(1.5 * ms["jax_fba_ate_m"] + 0.005, 1.5 * online_ate + 0.001)
@@ -1473,6 +1498,10 @@ def phase_multi_session(card, run, gt, online_ate):
         prob, est.cameras, est.imu_params, fba.SolverConfig(max_iterations=30))[0]))
     r, m = fba._reproj_residuals(again[0], est.cameras)
     solved = again[0]
+    # the dense path reduces in a fixed order: the second solve of the pack
+    # repeats the first bit for bit
+    repeats = all(torch.equal(getattr(first, k), getattr(solved, k))
+                  for k in ("pose", "speed_bias", "extrinsics", "landmarks"))
     err_px = (torch.linalg.norm(r, dim=-1) / solved.obs_sqrt_info)[m].double().cpu().numpy()
     log(f"{tag} {fba_ms:.3f} ms, {stats['iterations']} LM iterations, capacities S/L/O/R "
         f"{prob.S}/{prob.L}/{prob.O}/{prob.rel_mask.shape[0]} (used {info['states']}/"
@@ -1484,6 +1513,11 @@ def phase_multi_session(card, run, gt, online_ate):
         f"{np.mean(err_px > 3.0):.4f} of the observations above 3 px), ATE {ate:.6f} m (bar "
         f"{bar_ate:.6f}; online {online_ate:.6f}, the JAX final BA {ms['jax_fba_ate_m']:.6f}), "
         f"loop edges {loop_edges} ({card})")
+    log(f"{tag} the pack solved again in float32 (30 LM iterations, under the profiler): "
+        f"poses, speed/biases, extrinsics and landmarks equal to the final BA's bit for bit: "
+        f"{repeats}")
+    assert repeats, "final BA: a second float32 solve of the pack differs from the first"
+    check_overhead_image(est)
     assert info["restored_observations"] > 0, info["restored_observations"]
     assert loop_edges == ms["jax_loop_edges"], loop_edges
     assert info["states"] > 4 and info["landmarks"] > SLAM_MIN_LANDMARKS, info
@@ -1546,6 +1580,32 @@ def phase_multi_session(card, run, gt, online_ate):
     pack = {"prob": prob, "p64": p64, "ref64": out[DEVICE], "pose32": again[0].pose.cpu().numpy(),
             "cams": est.cameras, "imu": est.imu_params, "states": n_s, "landmarks": n_l}
     return launches, pack
+
+
+def check_overhead_image(est):
+    """``visualizer.draw_overhead_image`` of the session after its final BA:
+    [512, 512], the current pose marked at 1.0, and the same image from the
+    same records held as tensors on the card."""
+    import types
+
+    from okvis2_torch.pipeline.visualizer import draw_overhead_image
+
+    t0 = time.perf_counter()
+    img = draw_overhead_image(est)
+    ms = (time.perf_counter() - t0) * 1e3
+    on_card = types.SimpleNamespace(
+        state_order=list(est.state_order),
+        states={s: types.SimpleNamespace(pose=torch.as_tensor(r.pose, device=DEVICE),
+                                         is_keyframe=r.is_keyframe)
+                for s, r in est.states.items()},
+        landmarks={k: types.SimpleNamespace(hp_W=torch.as_tensor(lm.hp_W, device=DEVICE),
+                                            initialised=lm.initialised)
+                   for k, lm in est.landmarks.items()})
+    same = np.array_equal(draw_overhead_image(on_card), img)
+    log(f"[overhead image] {img.shape} in {ms:.1f} ms (host): max {img.max():.2f}, "
+        f"{int((img == 0.25).sum())} landmark pixels, {int((img == 0.7).sum())} trajectory "
+        f"pixels; from the records as tensors on the card: equal {same}")
+    assert img.shape == (512, 512) and img.max() == 1.0 and same
 
 
 def second_session(card, name, dd, path, data):
@@ -2210,18 +2270,19 @@ def phase_app(card):
 # node maps the config as the JAX node does (without the realtime budget's
 # fields and without a LoopClosureConfig; at euroc.yaml those fields are
 # the EstimatorConfig defaults anyway) and replays the first BAG_FRAMES
-# frames of the .db3 bag. The JAX node on the same bag
-# (tools/e2e_reference_jax.py bag, CPU, float32): "processed 20 frames, 906
-# landmarks", keyframes at frames 0 and 12, the estimator's 20 states at
-# an aligned ATE of 24.611 mm, no loop closure; truncated: the window's
-# landmarks 8 times, frame-to-frame rows once. Held: the streams, the
-# printed line (20 frames), the keyframes, the landmarks within max(3, 1 %)
-# of the JAX node's, the ATE at phase 8's rule, one Harris launch per frame
-# per octave.
-BAG_FRAMES = 20
+# frames of the .db3 bag: 13, through the second keyframe (20 until the
+# phases' time grew with phases 16-17). The JAX node on the same bag
+# (tools/e2e_reference_jax.py bag 13, CPU, float32): "processed 13 frames,
+# 812 landmarks", keyframes at frames 0 and 12, the estimator's 13 states
+# at an aligned ATE of 44.420 mm, no loop closure; truncated: the window's
+# landmarks once, frame-to-frame rows once (at 20 frames: 906 landmarks,
+# keyframes 0 and 12, 24.611 mm). Held: the streams, the printed line, the
+# keyframes, the landmarks within max(3, 1 %) of the JAX node's, the ATE at
+# phase 8's rule, one Harris launch per frame per octave.
+BAG_FRAMES = 13
 BAG_IMU_TOPIC = "/okvis/imu"
 BAG_IMAGE_TOPICS = ("/okvis/cam0/image_raw", "/okvis/cam1/image_raw")
-BAG_JAX = dict(ate_m=0.02461091995991429, keyframes=[0, 12], landmarks=906)
+BAG_JAX = dict(ate_m=0.04441952167387646, keyframes=[0, 12], landmarks=812)
 
 
 class CdrWriter:
@@ -2494,6 +2555,329 @@ def phase_bag(card, app_rows):
     return launches
 
 
+# Phase 16: the native EuRoC prefetcher (okvis2_torch/pipeline/native_loader.py:
+# worker threads decode NATIVE_PREFETCH frames ahead, inflating with zlib and
+# undoing the PNG row filters in okvis2_torch/native/dataloader.cpp, built
+# on first use with the host compiler) on phase 14's two 40-frame folders,
+# and on a copy of the circle folder whose PNGs are re-encoded with the
+# Paeth filter on every row (encode_png_rows): writers that pick a filter
+# per row (libpng's adaptive heuristic) write such rows, which the Python
+# codec decodes with a loop per pixel (~0.3 s a 752x480 image), so the
+# Python reader reads only NATIVE_PY_PAETH_PAIRS pairs of the copy. Held:
+# open_euroc returns the native reader; its streams equal
+# EurocDatasetReader's (events, order, times, IMU values and images bit for
+# bit), on the Paeth copy against the circle folder's Python stream (the
+# same pixels), and the Python reader's first pairs of the copy agree.
+# Printed: the decode ms per pair of both readers on one thread, and the
+# main thread's wait per frame once the prefetch is primed.
+NATIVE_PREFETCH = 8
+NATIVE_PY_PAETH_PAIRS = 2
+
+
+def encode_png_rows(img, filters):
+    """PNG bytes of a uint8 [H, W] image whose row y is written with the
+    filter ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth), each predicted from the image's own pixels as the PNG
+    specification defines it."""
+    import struct
+    import zlib
+
+    from okvis2_torch.pipeline import png
+
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape
+    x = img.astype(np.int32)
+    a, b, c = (np.zeros_like(x) for _ in range(3))  # left, up, up-left
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = (np.zeros_like(x), a, b, (a + b) >> 1, paeth)
+    kinds = np.asarray([filters[y % len(filters)] for y in range(h)], np.uint8)
+    rows = np.empty((h, w + 1), np.uint8)
+    rows[:, 0] = kinds
+    for k in np.unique(kinds):
+        sel = kinds == k
+        rows[sel, 1:] = ((x - preds[k]) & 0xFF)[sel]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
+    return (png.SIGNATURE + png._chunk(b"IHDR", ihdr)
+            + png._chunk(b"IDAT", zlib.compress(rows.tobytes())) + png._chunk(b"IEND", b""))
+
+
+def filtered_copy(src, dst, filters):
+    """A copy of the EuRoC folder ``src`` at ``dst`` with every PNG
+    re-encoded by ``encode_png_rows`` (the same pixels, other row filters).
+    Returns the number of images."""
+    import shutil
+
+    from okvis2_torch.pipeline import png
+
+    n = 0
+    for root, _, files in os.walk(src):
+        out = os.path.join(dst, os.path.relpath(root, src))
+        os.makedirs(out, exist_ok=True)
+        for name in files:
+            if name.endswith(".png"):
+                with open(os.path.join(out, name), "wb") as f:
+                    f.write(encode_png_rows(png.read_png(os.path.join(root, name)), filters))
+                n += 1
+            else:
+                shutil.copyfile(os.path.join(root, name), os.path.join(out, name))
+    return n
+
+
+def compare_streams(got, want):
+    """Two readers' event streams: the same events in the same order, times
+    equal, IMU values and float32 images bit for bit. Returns the counts."""
+    import itertools
+
+    counts = {"imu": 0, "images": 0}
+    for g, w in itertools.zip_longest(got, want):
+        assert g is not None and w is not None, f"the streams part after {counts}"
+        assert g[0] == w[0] and g[1] == w[1], (g[:2], w[:2], counts)
+        if g[0] == "imu":
+            assert all(np.array_equal(u, v) for u, v in zip(g[2:], w[2:])), counts
+        else:
+            assert len(g[2]) == len(w[2]) and all(
+                u.dtype == v.dtype == np.float32 and np.array_equal(u, v)
+                for u, v in zip(g[2], w[2])), counts
+        counts[g[0]] += 1
+    return counts
+
+
+def primed_wait_ms(reader, tol):
+    """The main thread's wait for each frame of ``reader``'s stream (ms),
+    the stream started and left 0.5 s to fill its prefetch first."""
+    stream = reader.stream(tol)
+    waits, ev = [], next(stream)
+    time.sleep(0.5)
+    t = time.perf_counter()
+    for ev in stream:
+        if ev[0] == "images":
+            waits.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+    return waits
+
+
+def decode_ms_per_pair(decode, frames):
+    """Mean ms to decode one frame's images on the calling thread."""
+    t = time.perf_counter()
+    for _, paths in frames:
+        for p in paths:
+            decode(p)
+    return (time.perf_counter() - t) * 1e3 / max(len(frames), 1)
+
+
+def phase_native_loader(card):
+    """Phase 16 (see NATIVE_PREFETCH)."""
+    import shutil
+    import tempfile
+
+    from okvis2_torch.config import read_config_file
+    from okvis2_torch.pipeline import native_loader
+    from okvis2_torch.pipeline.dataset import EurocDatasetReader, load_image
+
+    tag = "[native loader]"
+    tol = read_config_file(APP_CONFIG, device="cpu").camera_rig.timestamp_tolerance
+    root = tempfile.mkdtemp(prefix="okvis2_native_")
+    try:
+        t0 = time.perf_counter()
+        lib = native_loader.load_native_lib()
+        log(f"{tag} okvis2_torch/native/dataloader.cpp built and loaded in "
+            f"{time.perf_counter() - t0:.2f} s")
+        folders = {}
+        for name, period in (("circle", APP_PERIOD), ("default", None)):
+            folders[name] = os.path.join(root, name)
+            write_app_folder(folders[name], APP_FRAMES, period)
+            digest = app_folder_digest(folders[name])
+            assert digest == APP_JAX["sync" if period else "pipelined"]["folder_digest"], name
+        folders["paeth"] = os.path.join(root, "paeth")
+        t0 = time.perf_counter()
+        n_png = filtered_copy(folders["circle"], folders["paeth"], [4])
+        log(f"{tag} phase 14's folders written again; the circle folder's {n_png} PNGs "
+            f"re-encoded with Paeth rows in {time.perf_counter() - t0:.2f} s")
+        for name in ("circle", "default", "paeth"):
+            reader = native_loader.open_euroc(folders[name], 2, tol)
+            assert isinstance(reader, native_loader.NativeEurocReader), type(reader)
+            assert (reader.width, reader.height, reader.num_frames) == (W, H, APP_FRAMES)
+            # the Paeth copy holds the circle folder's pixels
+            ref = EurocDatasetReader(folders["circle" if name == "paeth" else name], 2)
+            t0 = time.perf_counter()
+            counts = compare_streams(reader.stream(tol), ref.stream(tol))
+            both_s = time.perf_counter() - t0
+            waits = primed_wait_ms(reader, tol)
+            frames = EurocDatasetReader(folders[name], 2).synced_frames(tol)
+            nat_ms = decode_ms_per_pair(lambda p: native_loader.decode_image(lib, p), frames)
+            py_frames = frames[:NATIVE_PY_PAETH_PAIRS] if name == "paeth" else frames
+            t0 = time.perf_counter()
+            py_imgs = [[load_image(p) for p in paths] for _, paths in py_frames]
+            py_ms = (time.perf_counter() - t0) * 1e3 / len(py_frames)
+            if name == "paeth":  # the Python reader's first pairs of the copy
+                circle = EurocDatasetReader(folders["circle"], 2).synced_frames(tol)
+                for k, imgs in enumerate(py_imgs):
+                    assert all(np.array_equal(u, load_image(p))
+                               for u, p in zip(imgs, circle[k][1])), k
+            reader.close()
+            on_circle = " on the circle folder" if name == "paeth" else ""
+            log(f"{tag} {name}: open_euroc gave NativeEurocReader ({reader.width}x"
+                f"{reader.height}, {reader.num_frames} frames, {NATIVE_PREFETCH} ahead); its "
+                f"stream equals EurocDatasetReader's{on_circle}: "
+                f"{counts['images']} image pairs bit for bit, {counts['imu']} IMU samples "
+                f"exactly ({both_s:.2f} s for both streams); decode per pair on one thread: "
+                f"native {nat_ms:.3f} ms, Python {py_ms:.3f} ms (over {len(py_frames)} pairs); "
+                f"main thread's wait per frame once primed: mean {np.mean(waits):.3f} ms, "
+                f"median {np.median(waits):.3f} ms, max {np.max(waits):.3f} ms (host; {card})")
+            assert counts["images"] == APP_FRAMES, counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# Phase 17: Fast-SCNN's importer and trainer on the card.
+# (a) the public checkpoint's layout (models/torch_fast_scnn.py) with seeded
+#     random weights and BatchNorm statistics, saved as .pth, converted by
+#     import_torch_fast_scnn.main and loaded into the port's FastSCNN
+#     (load_params -> interop.fast_scnn_state_dict_from_flax): its logits
+#     at 192x320 on the card within SCNN_IMPORT_TOL of the mirror's on the
+#     card, at least SCNN_IMPORT_AGREE of the argmax equal (the JAX
+#     importer test's bars, tests/test_torch_import.py);
+# (b) one training step (train_synthetic.train_step) in float64 at full
+#     width, batch 4 at 192x320, from the same variables and batch on the
+#     card and on the CPU: the loss, every gradient (weights and BatchNorm
+#     statistics) and every updated leaf within SCNN_STEP_TOL of each
+#     leaf's largest magnitude;
+# (c) train(**SCNN_TRAIN) in float32 on the card: the mean loss over the
+#     last 25 steps below that over the first 25; the pixel accuracy on the
+#     2-D scenes and on the textured views at least the JAX run's minus
+#     SCNN_ACC_SLACK (the port starts from its own seeded initialisation).
+#     The JAX trainer on the CPU in float32
+#     (tools/e2e_reference_jax.py train 200 0): losses at steps 0, 25, ...,
+#     175 of 2.9442, 0.5072, 0.6506, 0.3976, 0.3713, 0.1166, 0.1202,
+#     0.1485 (logged beside the port's); "pixel accuracy: 2d 0.974
+#     textured 0.931". The trained model saved with save_params, reloaded
+#     and run on 4 fresh scenes must give the trained model's classes; the
+#     JAX package's committed weights stay untouched.
+SCNN_IMPORT_TOL, SCNN_IMPORT_AGREE, SCNN_STEP_TOL, SCNN_ACC_SLACK = 2e-3, 0.999, 1e-8, 0.05
+SCNN_TRAIN = dict(steps=200, batch=4, textured_frac=0.5, seed=0)
+SCNN_JAX = dict(acc_2d=0.9738789876302083, acc_textured=0.931,
+                losses=[2.9442, 0.5072, 0.6506, 0.3976, 0.3713, 0.1166, 0.1202, 0.1485])
+
+
+def phase_scnn(card):
+    """Phase 17 (see SCNN_TRAIN)."""
+    import hashlib
+    import tempfile
+
+    from okvis2_torch import interop
+    from okvis2_torch.models import fast_scnn as tfs
+    from okvis2_torch.models import import_torch_fast_scnn as timp
+    from okvis2_torch.models import train_synthetic as ttr
+    from okvis2_torch.models.torch_fast_scnn import build_torch_fast_scnn
+
+    with open(CNN_WEIGHTS, "rb") as f:
+        weights_digest = hashlib.sha256(f.read()).hexdigest()
+    with tempfile.TemporaryDirectory(prefix="okvis2_scnn_") as tmp:
+        # (a) the importer
+        tag = "[scnn import]"
+        gen = torch.Generator().manual_seed(0)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            mirror = build_torch_fast_scnn().eval()
+        with torch.no_grad():
+            for m in mirror.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.05)
+                    m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+        pth, npz = os.path.join(tmp, "fast_scnn_random.pth"), os.path.join(tmp, "imported.npz")
+        torch.save(mirror.state_dict(), pth)
+        t0 = time.perf_counter()
+        assert timp.main([pth, npz]) == 0
+        import_ms = (time.perf_counter() - t0) * 1e3
+        model = tfs.FastSCNN()
+        model.load_state_dict(interop.fast_scnn_state_dict_from_flax(tfs.load_params(npz)))
+        model = model.to(DEVICE).eval()
+        img = torch.rand((192, 320, 3), generator=gen) * 2 - 1
+        with torch.no_grad():
+            want = mirror.to(DEVICE)(img.permute(2, 0, 1)[None].to(DEVICE))[0]
+        got = tfs.image_logits(model, img.to(DEVICE))
+        err = float((got - want).abs().max())
+        agree = float((got.argmax(0) == want.argmax(0)).double().mean())
+        log(f"{tag} mirror .pth -> import_torch_fast_scnn.main -> load_params in "
+            f"{import_ms:.1f} ms; logits on the card at 192x320 within {err:.3e} of the "
+            f"mirror's (bar {SCNN_IMPORT_TOL:g}), argmax agreement {agree:.5f} (bar "
+            f"{SCNN_IMPORT_AGREE}) ({card})")
+        assert got.shape == (19, 192, 320) and err < SCNN_IMPORT_TOL, err
+        assert agree >= SCNN_IMPORT_AGREE, agree
+
+        # (b) one float64 step at full width, card against CPU
+        tag = "[scnn step]"
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1)
+            base = tfs.FastSCNN().double()
+        imgs, labs = ttr.draw_batch(np.random.default_rng(0), SCNN_TRAIN["batch"], [], 0.0)
+        out = {}
+        for dev in ("cpu", DEVICE):
+            trained = ttr.trainable_model(base).to(dev)
+            opt = torch.optim.Adam(trained.parameters(), lr=1e-3, eps=1e-8)
+            x = torch.from_numpy(imgs).permute(0, 3, 1, 2).contiguous().to(dev, torch.float64)
+            t0 = time.perf_counter()
+            loss = float(ttr.train_step(trained, opt, x, torch.from_numpy(labs).to(dev)))
+            ms = (time.perf_counter() - t0) * 1e3
+            grads = {n: p.grad.cpu() for n, p in trained.named_parameters()}
+            new = {n: p.detach().cpu() for n, p in trained.named_parameters()}
+            out[dev] = (loss, grads, new, ms)
+        (lc, gc, nc, msc), (lg, gg, ng, msg) = out["cpu"], out[DEVICE]
+
+        def worst(a, b):
+            return max(float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-300)
+                       for k in b)
+
+        d_grad, d_new = worst(gg, gc), worst(ng, nc)
+        n_stats = sum(1 for k in gc if k.endswith(("running_mean", "running_var")))
+        log(f"{tag} float64, batch {SCNN_TRAIN['batch']} at 192x320, card against CPU: loss "
+            f"{lg:.12f} / {lc:.12f}, gradients within {d_grad:.3e} and updated leaves within "
+            f"{d_new:.3e} of each leaf's largest ({len(gc)} leaves, {n_stats} of them BatchNorm "
+            f"statistics; bar {SCNN_STEP_TOL:g}); card {msg:.1f} ms, CPU {msc:.1f} ms")
+        assert abs(lg - lc) <= SCNN_STEP_TOL * abs(lc), (lg, lc)
+        assert d_grad <= SCNN_STEP_TOL and d_new <= SCNN_STEP_TOL, (d_grad, d_new)
+        assert n_stats > 0 and all(float(gc[k].abs().max()) > 0 for k in gc
+                                   if k.endswith("running_mean"))
+
+        # (c) train on the card, save, reload
+        tag = "[scnn train]"
+        t0 = time.perf_counter()
+        served, rec = ttr.train(**SCNN_TRAIN, device=DEVICE)
+        wall_s = time.perf_counter() - t0
+        losses = rec["losses"]
+        first, last = float(np.mean(losses[:25])), float(np.mean(losses[-25:]))
+        log(f"{tag} train({', '.join(f'{k}={v}' for k, v in SCNN_TRAIN.items())}) on the card in "
+            f"{wall_s:.1f} s: {rec['step_ms']:.3f} ms per step (batch drawing included); loss "
+            f"at steps 0, 25, ...: {[round(float(v), 4) for v in losses[::25]]} (the JAX run on "
+            f"the CPU: {SCNN_JAX['losses']}); mean over the first 25 steps {first:.4f}, over "
+            f"the last 25 {last:.4f}; pixel accuracy 2d {rec['acc_2d']:.4f}, textured "
+            f"{rec['acc_textured']:.4f} (JAX {SCNN_JAX['acc_2d']:.4f}, "
+            f"{SCNN_JAX['acc_textured']:.3f}; bars - {SCNN_ACC_SLACK}) ({card})")
+        assert len(losses) == SCNN_TRAIN["steps"] and np.isfinite(losses).all()
+        assert last < first, (first, last)
+        assert rec["acc_2d"] >= SCNN_JAX["acc_2d"] - SCNN_ACC_SLACK, rec["acc_2d"]
+        assert rec["acc_textured"] >= SCNN_JAX["acc_textured"] - SCNN_ACC_SLACK, rec
+        path = os.path.join(tmp, "trained.npz")
+        tfs.save_params(path, served)
+        back = tfs.FastSCNN()
+        back.load_state_dict(interop.fast_scnn_state_dict_from_flax(tfs.load_params(path)))
+        back = back.to(DEVICE).eval()
+        rng = np.random.default_rng(123)
+        same = []
+        for _ in range(4):
+            im = torch.as_tensor(ttr.make_scene(rng)[0], device=DEVICE)
+            same.append(bool(torch.equal(tfs.segment_image(back, im),
+                                         tfs.segment_image(served, im))))
+        log(f"{tag} saved with save_params ({os.path.getsize(path)} bytes), reloaded: the "
+            f"classes of 4 fresh scenes equal the trained model's: {same}")
+        assert all(same), same
+    with open(CNN_WEIGHTS, "rb") as f:
+        assert hashlib.sha256(f.read()).hexdigest() == weights_digest, "weights changed"
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA card", file=sys.stderr)
@@ -2540,6 +2924,10 @@ def main():
     done("14 app")
     launches_slam.update(phase_bag(card, app_rows))
     done("15 ros2 bag replay")
+    phase_native_loader(card)
+    done("16 native loader")
+    phase_scnn(card)
+    done("17 fast-scnn")
     for k in kernels:
         by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
         by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})

@@ -223,3 +223,38 @@ def fast_scnn_state_dict_from_flax(flat: dict) -> dict:
         elif name not in out:
             raise KeyError(f"fast_scnn_state_dict_from_flax: no value for {name!r}")
     return out
+
+
+def fast_scnn_flax_from_state_dict(sd: dict) -> dict:
+    """The inverse of ``fast_scnn_state_dict_from_flax``: a ``state_dict``
+    of ``models.fast_scnn.FastSCNN`` -> the JAX package's flattened Flax
+    variables (``{"params/<module>/.../kernel": array, ...,
+    "batch_stats/.../mean": array}``, numpy arrays in the tensors' dtype),
+    as its ``save_params`` writes them.
+
+    Conv weights [out,in/groups,kh,kw] become kernels [kh,kw,in/groups,out];
+    BatchNorm weight/bias/running_mean/running_var become scale/bias/mean/
+    var; ``num_batches_tracked`` is dropped. Strict: a key the model does
+    not have, or a model leaf without a value, raises."""
+    expected = FastSCNN().to("meta").state_dict()
+    leaf_of = {v: k for k, v in _FLAX_LEAF.items() if k != ("params", "scale")}
+    out = {}
+    for name, value in sd.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if name not in expected or tuple(expected[name].shape) != tuple(value.shape):
+            raise KeyError(f"fast_scnn_flax_from_state_dict: {name!r} {tuple(value.shape)} "
+                           f"does not fit the model")
+        *mod, leaf = name.split(".")
+        a = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        if leaf == "weight" and a.ndim == 4:
+            coll, flax_leaf, a = "params", "kernel", a.transpose(2, 3, 1, 0)
+        elif leaf == "weight":
+            coll, flax_leaf = "params", "scale"
+        else:
+            coll, flax_leaf = leaf_of[leaf]
+        out["/".join([coll, *mod, flax_leaf])] = np.ascontiguousarray(a)
+    missing = [n for n in expected if not n.endswith("num_batches_tracked") and n not in sd]
+    if missing:
+        raise KeyError(f"fast_scnn_flax_from_state_dict: no value for {missing[0]!r}")
+    return out

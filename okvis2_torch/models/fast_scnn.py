@@ -200,3 +200,14 @@ def load_params(path: str) -> dict:
     {"params/<module>/.../<leaf>" or "batch_stats/...": numpy array}."""
     with np.load(path, allow_pickle=False) as data:
         return {k: np.asarray(v) for k, v in data.items()}
+
+
+def save_params(path: str, model) -> None:
+    """Write a ``FastSCNN`` (or its ``state_dict``) as the JAX package's
+    flattened Flax checkpoint (its ``save_params``: a compressed ``.npz``
+    of ``interop.fast_scnn_flax_from_state_dict``), which ``load_params``
+    and the JAX package's ``load_params`` both read."""
+    from okvis2_torch.interop import fast_scnn_flax_from_state_dict
+
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    np.savez_compressed(path, **fast_scnn_flax_from_state_dict(sd))

@@ -326,16 +326,21 @@ def load_image(fn: str) -> np.ndarray:
     return png.read_png(fn).astype(np.float32) / 255.0
 
 
-def _imu_events(imu, frames, load) -> Iterator[tuple]:
+def _load_images(fns) -> List[np.ndarray]:
+    return [load_image(f) for f in fns]
+
+
+def _imu_events(imu, frames, load_frame=_load_images) -> Iterator[tuple]:
     """Merge IMU rows and synced frames into one time-ordered stream: the
     IMU up to 5 ms past each frame goes before it (DatasetReader's
-    look-ahead)."""
+    look-ahead). ``load_frame`` turns a frame's image paths into its
+    images."""
     ii = 0
     for t, fns in frames:
         while ii < len(imu) and imu[ii][0] <= t + 0.005:
             yield ("imu", imu[ii][0], imu[ii][1], imu[ii][2])
             ii += 1
-        yield ("images", t, [load(f) for f in fns])
+        yield ("images", t, load_frame(fns))
     while ii < len(imu):
         yield ("imu", imu[ii][0], imu[ii][1], imu[ii][2])
         ii += 1
@@ -385,7 +390,10 @@ class EurocDatasetReader:
         time order; each cam0 frame is synced with the other cameras'
         nearest frames within ``sync_tolerance`` (DatasetReader's sync
         groups) and dropped when one has none."""
-        imu = self._read_imu()
+        return _imu_events(self._read_imu(), self.synced_frames(sync_tolerance))
+
+    def synced_frames(self, sync_tolerance: float = 0.005) -> List[Tuple[float, List[str]]]:
+        """[(t, [image path per camera])] of the frames ``stream`` yields."""
         cams = [self._read_cam_index(ci) for ci in range(self.num_cameras)]
         frames = []
         ptrs = [0] * self.num_cameras
@@ -401,7 +409,7 @@ class EurocDatasetReader:
                 fns.append(fnc)
             else:
                 frames.append((t0, fns))
-        return _imu_events(imu, frames, load_image)
+        return frames
 
     def start_streaming(self):
         """Feed the callbacks from a thread of their own."""
@@ -465,7 +473,7 @@ class RpgDatasetReader:
                       if abs(tl - tr) <= sync_tolerance]
         else:
             frames = [(t, [f]) for t, f in self._read_images_index("images.txt")]
-        return _imu_events(self._read_imu(), frames, load_image)
+        return _imu_events(self._read_imu(), frames)
 
 
 class DatasetWriter:

@@ -68,8 +68,10 @@ def _paeth_row(f: np.ndarray, up: np.ndarray) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """uint8 [H, W] pixels of an 8-bit grayscale PNG's bytes."""
+def inflate_png(data: bytes, path: str = "<bytes>"):
+    """(width, height, rows) of an 8-bit grayscale PNG's bytes: ``rows``
+    the inflated image data, per row one filter byte and ``width`` filtered
+    bytes (``zlib.decompress`` releases the interpreter lock)."""
     header, idat = None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
@@ -83,10 +85,16 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
         raise ValueError(
             f"{path}: only non-interlaced 8-bit grayscale PNGs are supported (bit depth "
             f"{depth}, colour type {colour}, interlace {interlace})")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (width + 1):
-        raise ValueError(f"{path}: {raw.size} bytes of image data for {width}x{height}")
-    rows = raw.reshape(height, width + 1)
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != height * (width + 1):
+        raise ValueError(f"{path}: {len(raw)} bytes of image data for {width}x{height}")
+    return width, height, raw
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """uint8 [H, W] pixels of an 8-bit grayscale PNG's bytes."""
+    width, height, raw = inflate_png(data, path)
+    rows = np.frombuffer(raw, np.uint8).reshape(height, width + 1)
     kinds, filtered = rows[:, 0], rows[:, 1:]
     if kinds.max(initial=0) > 4:
         raise ValueError(f"{path}: unknown row filter {int(kinds.max())}")

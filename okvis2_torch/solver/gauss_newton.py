@@ -9,7 +9,9 @@ Port of ``okvis2_tpu/solver/gauss_newton.py``:
   D = 15 S + 6 NC; on window-scale problems it is gathered through a
   per-solve (camera, landmark, state) -> observation table (the TABLE
   path), on full-graph-scale problems built from one-hot products (the
-  DENSE path);
+  DENSE path), whose per-landmark sums run along a per-solve layout of the
+  observations sorted by landmark: no atomics, so a float32 solve on the
+  card gives the same result on every run;
 - landmarks are eliminated by an explicit block Schur complement with
   batched 3x3 adjugate inverses; the reduced system is Jacobi
   preconditioned and solved by Cholesky;
@@ -228,6 +230,52 @@ def _build_obs_table(problem: WindowProblem) -> torch.Tensor:
     return tbl[:n]
 
 
+def _build_lm_rows(problem: WindowProblem) -> torch.Tensor:
+    """Per-solve layout of the observation rows by landmark for the dense
+    path: [L, K] row indices, K the most rows any landmark has, each
+    landmark's rows in row order and padded with O (a zero row). Sorting
+    is stable and the counts are integer, so the layout is the same on
+    every run; the dense path's per-landmark sums then add in the order it
+    fixes, with no atomics. One host read (K) per solve."""
+    L, O = problem.L, problem.O
+    dev = problem.obs_lm.device
+    lm = torch.where(problem.obs_mask, problem.obs_lm, torch.full_like(problem.obs_lm, L))
+    order = torch.sort(lm, stable=True).indices
+    count = torch.bincount(lm, minlength=L + 1)[:L]
+    start = torch.cumsum(count, 0) - count
+    K = max(int(count.max()), 1)
+    k = torch.arange(K, dtype=torch.long, device=dev)
+    pos = (start[:, None] + k[None, :]).clamp(max=max(O - 1, 0))
+    return torch.where(k[None, :] < count[:, None], order[pos], torch.full_like(pos, O))
+
+
+def _landmark_terms(rows, Jp, Je, Jl, r0, obs_state, obs_cam, S, NC):
+    """The dense path's per-landmark reductions of the reprojection terms
+    (``rows`` from ``_build_lm_rows``): Hll [L,3,3] = sum Jl^T Jl, bl [L,3]
+    = -sum Jl^T r and W [L,D,3] = sum Jx^T Jl, whose pose rows come from Jp
+    at the observation's state and extrinsics rows from Je at its camera
+    (speed/bias rows zero). Each observation's products are gathered into
+    its landmark's row of ``rows`` and summed along it, so the order of
+    every sum is fixed."""
+    L, dtype = rows.shape[0], Jl.dtype
+    J = torch.cat([Jp, Je, Jl], dim=2)  # [O,2,15]
+    Jlr = torch.cat([Jl, r0[:, :, None]], dim=2)  # [O,2,4]
+    P = J[:, 0, :, None] * Jlr[:, 0, None, :] + J[:, 1, :, None] * Jlr[:, 1, None, :]
+    P = torch.cat([P, torch.zeros((1, 15, 4), dtype=dtype, device=P.device)])  # row O: zero
+    G = P[rows]  # [L,K,15,4]
+    Hll = G[:, :, 12:15, 0:3].sum(1)
+    bl = -G[:, :, 12:15, 3].sum(1)
+    pad = torch.zeros(1, dtype=obs_state.dtype, device=obs_state.device)
+    oh_s = F.one_hot(torch.cat([obs_state, pad])[rows], S).to(dtype)  # [L,K,S]
+    oh_c = F.one_hot(torch.cat([obs_cam, pad])[rows], NC).to(dtype)  # [L,K,NC]
+    Wp = torch.einsum("lkjt,lks->lsjt", G[:, :, 0:6, 0:3], oh_s)  # [L,S,6,3]
+    We = torch.einsum("lkjt,lkc->lcjt", G[:, :, 6:12, 0:3], oh_c)  # [L,NC,6,3]
+    W = torch.cat([Wp.reshape(L, S * 6, 3), torch.zeros((L, S * 9, 3), dtype=dtype,
+                                                         device=P.device),
+                   We.reshape(L, NC * 6, 3)], dim=1)
+    return Hll, bl, W
+
+
 def _block_diag(blocks: torch.Tensor) -> torch.Tensor:
     """[n,k,k] -> block-diagonal [n*k, n*k]."""
     n, k = blocks.shape[0], blocks.shape[-1]
@@ -275,14 +323,17 @@ def _reproj_val_jac(problem: WindowProblem, cameras):
 
 
 @forward_ad_locked
-def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None, group=None):
+def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None, group=None,
+               lm_rows=None):
     """Build the Schur-reducible normal equations at the current estimate.
 
     Returns (Hxx [D,D], bx [D], Hll [L,3,3], bl [L,3], W_rep, free_x [D]):
       - W_rep = ("blocks", Wp [L,S,6,3], We [L,NC,6,3]) on the TABLE path
         (``tbl`` from ``_build_obs_table``); speed/bias rows are
         structurally zero for vision and never materialised;
-      - W_rep = ("dense", W [L,D,3]) on the DENSE path (tbl=None).
+      - W_rep = ("dense", W [L,D,3]) on the DENSE path (tbl=None), whose
+        per-landmark sums run along ``lm_rows`` (``_build_lm_rows``, built
+        here when not given).
 
     With ``group``, Hxx and bx are summed over its ranks after the
     observation terms, before the replicated factors are added.
@@ -356,13 +407,10 @@ def _linearize(problem: WindowProblem, cameras, imu_params, config, tbl=None, gr
         )  # [O,2,D]
         Hxx = torch.einsum("oid,oie->de", Jx, Jx)
         bx = -torch.einsum("oid,oi->d", Jx, r0)
-        lm = problem.obs_lm
-        Hll = torch.zeros((L, 3, 3), dtype=dtype, device=dev).index_add_(
-            0, lm, torch.einsum("oid,oie->ode", Jl, Jl))
-        bl = torch.zeros((L, 3), dtype=dtype, device=dev).index_add_(
-            0, lm, -torch.einsum("oid,oi->od", Jl, r0))
-        W = torch.zeros((L, D, 3), dtype=dtype, device=dev).index_add_(
-            0, lm, torch.einsum("oid,oie->ode", Jx, Jl))
+        if lm_rows is None:
+            lm_rows = _build_lm_rows(problem)
+        Hll, bl, W = _landmark_terms(lm_rows, Jp, Je, Jl, r0, problem.obs_state,
+                                     problem.obs_cam, S, NC)
 
     if group is not None:
         Hxx, bx = _sum_over(group, Hxx, bx)
@@ -617,6 +665,7 @@ def solve_window(
     cost0 = problem_cost(problem, cameras, imu_params, config, group)
     use_table = problem.L * problem.S * problem.NC <= TABLE_MAX_ENTRIES
     tbl = _build_obs_table(problem) if use_table else None
+    lm_rows = None if use_table else _build_lm_rows(problem)
 
     lam = torch.tensor(config.initial_lambda, dtype=dtype, device=dev)
     cost = cost0
@@ -625,7 +674,7 @@ def solve_window(
     lam_ok = config.initial_lambda < 1e7
     while it < config.max_iterations and stall < 2 and lam_ok:
         Hxx, bx, Hll, bl, W_rep, free_x = _linearize(prob, cameras, imu_params, config, tbl,
-                                                     group)
+                                                     group, lm_rows)
         dx, dl = _schur_solve(Hxx, bx, Hll, bl, W_rep, free_x, prob.lm_mask, lam, config, group)
         cand = _apply_deltas(prob, dx, dl)
         new_cost = problem_cost(cand, cameras, imu_params, config, group)

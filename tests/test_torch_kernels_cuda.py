@@ -5,7 +5,9 @@ the CPU; Fast-SCNN and the textured world on the card against the CPU; the
 sharded solve over NCCL at world size 1 against the unsharded one; the
 dataset app's config reader, PNG round trip and a 5-frame app run on the
 card at configs/euroc.yaml; the ROS2 node's 5-frame bag replay there, on
-the card against the CPU.
+the card against the CPU; the solver's dense path repeating bit for bit in
+float32; one float64 Fast-SCNN training step on the card against the CPU;
+the native EuRoC prefetcher built and read on the card's machine.
 
 A hand-written CUDA kernel has no CPU mode, so every test here is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it also
@@ -952,3 +954,75 @@ def test_bag_replay_card_matches_cpu(cuda, tmp_path, monkeypatch, capsys):
     assert [a[0] for a in card] == [b[0] for b in host]
     assert max(d_pos[:2]) < 1e-4 and [a[2] for a in card[:2]] == [b[2] for b in host[:2]]
     assert max(d_pos) < 0.05
+
+
+def test_dense_path_solve_repeats_on_card(cuda, monkeypatch):
+    """A float32 solve on the dense path (the full graph's and the final
+    BA's), run twice on the card and once more on a side stream: poses and
+    landmarks equal bit for bit (the per-landmark sums run in an order the
+    code fixes; ``index_add_``'s atomics did not)."""
+    from okvis2_torch.solver import gauss_newton as tgn
+    from okvis2_torch.solver.window_problem import SolverConfig
+    from okvis2_torch.utils import synthetic as tsyn
+
+    problem, cams, imu, _ = tsyn.build_problem(num_states=8, n_landmarks_side=14, device=cuda)
+    frozen = torch.zeros(problem.S, dtype=torch.bool, device=cuda)
+    frozen[0] = True
+    f32 = torch.float32
+    prob = tsyn.disturb_problem(problem.replace(pose_frozen=frozen)).to(dtype=f32)
+    cams = tuple(c.to(dtype=f32) for c in cams)
+    imu = imu.to(dtype=f32)
+    monkeypatch.setattr(tgn, "TABLE_MAX_ENTRIES", 0)
+    cfg = SolverConfig(max_iterations=10)
+    runs = [tgn.solve_window(prob, cams, imu, cfg) for _ in range(2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs.append(tgn.solve_window(prob, cams, imu, cfg))
+    torch.cuda.synchronize()
+    (a, sa), *rest = runs
+    for b, sb in rest:
+        assert sb["iterations"] == sa["iterations"]
+        assert torch.equal(a.pose, b.pose) and torch.equal(a.landmarks, b.landmarks)
+
+
+def test_fast_scnn_training_step_card_matches_cpu(cuda):
+    """One float64 training step (``train_synthetic.train_step``: loss,
+    gradients of the weights and BatchNorm statistics, Adam) on the card
+    and on the CPU from the same variables and batch (2 x 64 x 128): each
+    within 1e-8 of its largest magnitude."""
+    from okvis2_torch.models import fast_scnn as tfs
+    from okvis2_torch.models import train_synthetic as ttr
+
+    torch.manual_seed(0)
+    base = tfs.FastSCNN().double()
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.uniform(0, 1, (2, 3, 64, 128)))
+    labs = torch.from_numpy(rng.choice(np.array([2, 10, 11]), (2, 64, 128)))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = ttr.trainable_model(base).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+        loss = float(ttr.train_step(model, opt, imgs.to(dev), labs.to(dev)))
+        out[str(dev)] = (loss, {n: (p.grad.cpu(), p.detach().cpu())
+                                for n, p in model.named_parameters()})
+    (lc, c), (lg, g) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-8 * abs(lc)
+    for n in c:
+        for a, b in zip(g[n], c[n]):
+            assert float((a - b).abs().max()) <= 1e-8 * max(float(b.abs().max()), 1e-300), n
+
+
+def test_native_loader_on_card_machine(cuda, tmp_path):
+    """The EuRoC prefetcher built with this machine's host compiler and
+    read on 3 frames of phase 14's folder: ``open_euroc`` gives the native
+    reader, its stream equals the Python reader's bit for bit."""
+    from chip_smoke import compare_streams
+    from okvis2_torch.pipeline import native_loader
+    from okvis2_torch.pipeline.dataset import EurocDatasetReader
+
+    _euroc_folder(str(tmp_path), 3)
+    reader = native_loader.open_euroc(str(tmp_path), 2)
+    assert isinstance(reader, native_loader.NativeEurocReader)
+    counts = compare_streams(reader.stream(), EurocDatasetReader(str(tmp_path), 2).stream())
+    assert counts["images"] == 3 and (reader.width, reader.height) == (752, 480)

@@ -82,11 +82,23 @@ Bag mode, phase 15's reference (the ROS2 node's bag replay):
 writes phase 14's synchronous folder (the circle, with
 ``write_app_folder``) and a rosbag2 .db3 bag of it with chip_smoke.py's
 ``write_rosbag``, and runs ``okvis2_tpu.ros2.nodes.main_synchronous`` on
-the bag with ``--max-frames`` ``n_frames`` (default 20), recorded by
+the bag with ``--max-frames`` ``n_frames`` (default 13, chip_smoke.py's
+``BAG_FRAMES``), recorded by
 ``recorded_app_system``. The JSON line gives the folder's digest, the
 node's printed line and return code, the keyframes (by frame), landmarks,
 the estimator's states' aligned ATE against the ground truth, loop
 closures and capacity truncations.
+
+Train mode, phase 17's reference (Fast-SCNN training on the sky/person
+scenes):
+
+    env JAX_PLATFORMS=cpu python tools/e2e_reference_jax.py train [steps] [seed]
+
+runs ``okvis2_tpu.models.train_synthetic.train(steps, batch=4, seed=seed,
+textured_frac=0.5)`` (defaults 200 and 0) in float32, saving nothing. It
+prints the loss every 25 steps and the pixel accuracy on 8 fresh 2-D
+scenes and on the held-out textured views; the JSON line repeats both
+accuracies with the wall time.
 
 App mode, phase 14's reference (the dataset app at ``configs/euroc.yaml``):
 
@@ -103,7 +115,8 @@ the first of the default trajectory. It runs
 ``okvis2_tpu.apps.app_synchronous.main`` on each, recorded by
 chip_smoke.py's ``recorded_app_system``: ``--sync --final-ba --save-map``
 on the circle, and the default pipelined loop on the default trajectory
-with ``--max-frames`` ``pipelined_frames`` (default 30),
+with ``--max-frames`` ``pipelined_frames`` (default 20, chip_smoke.py's
+``APP_PIPELINED_FRAMES``),
 ``pipelined_min_pending`` frames kept in flight (default 1: the card's
 schedule). The JSON line gives the folders' digests (``app_folder_digest``:
 phase 14 checks that it reads the same pixels), and for each run the final CSV's rows and aligned ATE against the ground truth,
@@ -131,6 +144,8 @@ def main(argv):
         return app_main(argv[1:])
     if len(argv) > 1 and argv[1] == "bag":
         return bag_main(argv[1:])
+    if len(argv) > 1 and argv[1] == "train":
+        return train_main(argv[1:])
     n_frames = int(argv[1]) if len(argv) > 1 else 60
     rate = float(argv[2]) if len(argv) > 2 else 20.0
     trajectory = argv[3] if len(argv) > 3 else "default"
@@ -359,7 +374,7 @@ def app_main(argv):
     import tempfile
 
     n_frames = int(argv[1]) if len(argv) > 1 else 40
-    pipelined_frames = int(argv[2]) if len(argv) > 2 else 30
+    pipelined_frames = int(argv[2]) if len(argv) > 2 else 20
     min_pending = int(argv[3]) if len(argv) > 3 else 1
     from chip_smoke import APP_PERIOD, app_folder_digest, write_app_folder
     from okvis2_torch.pipeline.component_io import load_component
@@ -413,7 +428,7 @@ def bag_main(argv):
 
     import numpy as np
 
-    n_frames = int(argv[1]) if len(argv) > 1 else 20
+    n_frames = int(argv[1]) if len(argv) > 1 else 13
     from chip_smoke import (APP_FRAMES, APP_PERIOD, app_folder_digest, recorded_app_system,
                             write_app_folder, write_rosbag)
     from okvis2_tpu.graph import estimator as est_mod
@@ -447,6 +462,19 @@ def bag_main(argv):
     for th in threading.enumerate():  # as in app_main
         if th is not threading.current_thread():
             th.join()
+
+
+def train_main(argv):
+    """Phase 17's reference: the JAX trainer at the smoke run's settings."""
+    from okvis2_tpu.models.train_synthetic import train
+
+    steps = int(argv[1]) if len(argv) > 1 else 200
+    seed = int(argv[2]) if len(argv) > 2 else 0
+    t0 = time.perf_counter()
+    # train() returns the 2-D accuracy; the textured one is in its printout
+    _, acc = train(steps, None, batch=4, seed=seed, textured_frac=0.5)
+    print(json.dumps({"steps": steps, "seed": seed, "batch": 4, "textured_frac": 0.5,
+                      "acc_2d": acc, "wall_s": time.perf_counter() - t0}), flush=True)
 
 
 def cnn_record(slam, est, suppressed, kf_images, labels):
