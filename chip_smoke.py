@@ -17,7 +17,10 @@ hand-written kernel against its plain PyTorch version:
   4. frontend  detect -> describe -> stereo match at full width, with the
                keypoints held against the plain-Harris chain
   5. solve     a disturbed 12-state / 484-landmark window in float32,
-               checked against ground truth
+               checked against ground truth; and a rig of a radtan and an
+               equidistant camera (the solver evaluates each camera on its
+               own rows) solved in float64 on the card and on the CPU
+               (MIXED_RIG_RTOL)
   6. hot path  10 frames of (frontend + 3-iteration solve), as the JAX
                package's bench.py::bench_hotpath (50 frames before the
                synchronous loop's phase 8 took the time); the kernels'
@@ -117,6 +120,19 @@ hand-written kernel against its plain PyTorch version:
                against CPU at full width, and train() on the card at full
                width in float32 against the JAX trainer's accuracies; the
                trained weights saved, reloaded and segmenting as trained
+ 18. device-loop replay  phase 9's first drive ran with the frame capture
+               set (SlamSystem._bench_record); its last REPLAY_FRAMES records
+               are replayed by okvis2_torch.pipeline.device_replay with every
+               input staged on the card, in modes full, frontend and solve
+               (one warm and REPLAY_PASSES timed passes each): the first full
+               pass equal to the live [solve | diag] bit for bit, every pass
+               to the first, the frontend's diagnostics to the live ones, the
+               solve mode to the full one, one Harris launch per replayed
+               frame in modes full and frontend and none in solve, the
+               system unchanged; frames/s per mode beside phase 9's live
+               rate, and one profiled pass's host<->device copies and
+               synchronisations per frame by cause (none of 1 KB or more);
+               launch counts zeroed just before the replays
 
 Every check raises on failure, so any failing phase exits non-zero. The
 line before the last is the kernels' JSON record; the last line is
@@ -124,6 +140,7 @@ line before the last is the kernels' JSON record; the last line is
 before printing any result.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -212,10 +229,13 @@ SLAM_MIN_LANDMARKS = 50
 #   third frame on appends three sets of match rows on the card; with 8192
 #   observation slots in place of 4096, where the appended rows overflow
 #   in both packages (4251 rows in the JAX run; keyframes at frames 0-3).
+# The first drive runs with the frame capture set (``capture``: the JAX
+# bench's hook, SlamSystem._bench_record), whose records phase 18 replays.
 PIPELINED_DRIVES = {
     "slam pipelined": dict(frames=40, rate=20.0, trajectory="default", num_keyframes=5,
                            warmup=12, min_pending=0, in_flight=2, obs_slots=4096,
-                           jax_ate_m=0.1669036232354134, min_edges=0, profile=True),
+                           jax_ate_m=0.1669036232354134, min_edges=0, profile=True,
+                           capture=True),
     "slam pipelined deep lag": dict(frames=30, rate=20.0, trajectory="default",
                                     num_keyframes=5, warmup=6, min_pending=2, in_flight=3,
                                     obs_slots=8192, jax_ate_m=0.11948972192121458, min_edges=0,
@@ -625,6 +645,60 @@ def phase_solve():
     log(f"[solve] {stats['iterations']} iterations, cost {c0:.6e} -> {c1:.6e}, max position "
         f"error {float(err.max()):.3e} m, {secs:.3f} s")
     return problem, cams, imu_params
+
+
+# phase 5's mixed rig: the window problem of tests/test_torch_mixed_rig.py
+# (build_problem(num_states=4, n_landmarks_side=5), first pose frozen,
+# disturbed) with camera 1 equidistant, a radtan + equidistant rig, solved
+# in float64 for MIXED_RIG_ITERATIONS LM iterations on the card and on the
+# CPU (cost 2.30e9 -> 155.26 on the CPU); poses, landmarks and the final cost
+# held at MIXED_RIG_RTOL of each array's largest entry, the LM iterations
+# equal
+MIXED_RIG_EQUIDISTANT = [0.01, -0.005, 0.001, 0.0]
+MIXED_RIG_RTOL = 1e-9
+MIXED_RIG_ITERATIONS = 5
+
+
+def phase_mixed_rig():
+    """Phase 5's second part: a rig whose cameras differ in distortion class
+    (the solver evaluates each camera on its own rows), card against CPU."""
+    import dataclasses as dc
+
+    from okvis2_torch.cameras.distortion import EquidistantDistortion
+    from okvis2_torch.solver import SolverConfig, gauss_newton, solve_window
+    from okvis2_torch.utils import synthetic
+
+    problem, cams, imu_params, _ = synthetic.build_problem(num_states=4, n_landmarks_side=5,
+                                                           device="cpu")
+    frozen = torch.zeros(problem.S, dtype=torch.bool)
+    frozen[0] = True
+    problem = synthetic.disturb_problem(problem.replace(pose_frozen=frozen))
+    cams = (cams[0], dc.replace(cams[1], distortion=EquidistantDistortion.from_params(
+        MIXED_RIG_EQUIDISTANT)))
+    assert not gauss_newton._homogeneous(cams)
+    cfg = SolverConfig(max_iterations=MIXED_RIG_ITERATIONS)
+    t0 = time.perf_counter()
+    card, card_stats = solve_window(problem.to(device=DEVICE), tuple(c.to(device=DEVICE)
+                                                                      for c in cams),
+                                    imu_params.to(device=DEVICE), cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cpu, cpu_stats = solve_window(problem, cams, imu_params, cfg)
+    assert card_stats["iterations"] == cpu_stats["iterations"], (card_stats["iterations"],
+                                                                 cpu_stats["iterations"])
+    errs = {}
+    for name, a, b in (("pose", card.pose, cpu.pose), ("landmarks", card.landmarks,
+                                                        cpu.landmarks),
+                       ("final cost", card_stats["final_cost"], cpu_stats["final_cost"])):
+        a, b = a.double().cpu(), b.double()
+        errs[name] = float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+        assert errs[name] <= MIXED_RIG_RTOL, f"mixed rig: {name} card vs CPU {errs[name]:.3e}"
+    c0, c1 = float(cpu_stats["initial_cost"]), float(cpu_stats["final_cost"])
+    assert c1 <= 1e-3 * c0, f"mixed rig: cost {c0} -> {c1}"
+    log(f"[solve] mixed rig (radtan + equidistant, float64) S={problem.S} L={problem.L} "
+        f"O={problem.O}: {card_stats['iterations']} iterations on the card in {secs:.3f} s, cost "
+        f"{c0:.6e} -> {float(card_stats['final_cost']):.6e}; card vs CPU relative to each "
+        f"array's largest entry " + json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
 
 
 def phase_hotpath(imgs, det_cfg, window, card):
@@ -1120,10 +1194,12 @@ def phase_slam(card, name, d):
 
 def phase_pipelined(card, name, d):
     """Phase 9, one drive (``d``: a PIPELINED_DRIVES entry) of the
-    pipelined loop; returns the kernels' launch counts over its frames.
-    The loop is timed as its user sees it: ``process_frame`` returns
-    without waiting for the device (nothing here synchronises between
-    frames), and ``finish()`` drains the frames still in flight."""
+    pipelined loop; returns the kernels' launch counts over its frames and,
+    where ``d["capture"]``, the system with its frame records and the
+    loop's frames/s (else None). The loop is timed as its user sees it:
+    ``process_frame`` returns without waiting for the device (nothing here
+    synchronises between frames), and ``finish()`` drains the frames still
+    in flight."""
     from okvis2_torch.ops.harris_cuda import harris_nms_cuda
     from okvis2_torch.solver.packed_solve import MAX_APPEND_SETS
     from okvis2_torch.utils.timing import Timing
@@ -1131,6 +1207,8 @@ def phase_pipelined(card, name, d):
     n_frames, run = d["frames"], slam_drive(name, d, pipelined=True)
     slam, est, tag = run.slam, run.est, run.tag
     slam._force_min_pending = d["min_pending"]
+    if d.get("capture"):
+        slam._bench_record = []
     kf_of = {}
     slam.set_optimised_graph_callback(
         lambda t, sid, pose, tr: kf_of.__setitem__(sid, bool(tr.is_keyframe)))
@@ -1197,7 +1275,12 @@ def phase_pipelined(card, name, d):
     log(f"{tag} LM iterations per applied solve: first {iterations[:3]}, steady "
         f"{sorted(set(iterations[d['warmup']:]))}, mean {statistics.mean(iterations):.2f} over "
         f"{len(iterations)} solves")
-    return {"harris_nms": launches}
+    capture = None
+    if d.get("capture"):
+        assert len(slam._bench_record) == n_frames, (len(slam._bench_record), n_frames)
+        capture = {"slam": slam, "records": slam._bench_record, "tag": tag,
+                   "fps": n_steady / sum(steady), "in_flight": in_flight}
+    return {"harris_nms": launches}, capture
 
 
 LOOP_STAGES = ("2.06 place recognition", "2.08 loop closure", "2.081 loop verify",
@@ -2878,6 +2961,118 @@ def phase_scnn(card):
         assert hashlib.sha256(f.read()).hexdigest() == weights_digest, "weights changed"
 
 
+# phase 18: the device-loop replay (okvis2_torch.pipeline.device_replay)
+# of phase 9's first drive, cut from the JAX bench's 60 frames x 3 timed
+# passes (bench.py:198-275) to its last 10 records (frames 31-40, steady)
+# x one warm and 2 timed passes per mode, to keep the phase near a minute
+# (the solve, ~0.8 s a frame on the card, is most of it); the transfer
+# census profiles one more full pass over the last REPLAY_CENSUS records.
+# No copy of REPLAY_COPY_LIMIT bytes or more may happen there.
+REPLAY_FRAMES, REPLAY_PASSES, REPLAY_CENSUS = 10, 2, 1
+REPLAY_COPY_LIMIT = 1024
+
+
+def system_state(slam):
+    """What a replay must leave as it found it: the trajectory, the
+    landmarks, the descriptor table (the tensors and their values), the
+    RANSAC generator's state and the frames in flight."""
+    est, tab = slam.estimator, slam.frontend.table
+    return {"traj": [(t, p.copy()) for t, p in est.trajectory()],
+            "landmarks": {lid: lm.hp_W.copy() for lid, lm in est.landmarks.items()},
+            "table": (tab.signs, tab.valid, tab.signs.clone(), tab.valid.clone(),
+                      dict(tab.slot_of)),
+            "gen": slam.frontend._gen.get_state().clone(), "pending": len(slam._pending_frames)}
+
+
+def assert_same_state(a, b):
+    assert a["traj"] and len(a["traj"]) == len(b["traj"]) and all(
+        ta == tb and np.array_equal(pa, pb) for (ta, pa), (tb, pb) in zip(a["traj"], b["traj"]))
+    assert a["landmarks"].keys() == b["landmarks"].keys() and all(
+        np.array_equal(a["landmarks"][k], b["landmarks"][k]) for k in a["landmarks"])
+    assert a["table"][0] is b["table"][0] and a["table"][1] is b["table"][1]
+    assert torch.equal(b["table"][0], a["table"][2]) and torch.equal(b["table"][1], a["table"][3])
+    assert a["table"][4] == b["table"][4] and torch.equal(a["gen"], b["gen"])
+    assert a["pending"] == b["pending"]
+
+
+def phase_replay(card, cap):
+    """Phase 18: phase 9's last REPLAY_FRAMES records replayed on the card
+    in the three modes, with every input staged on the device; the first
+    full pass equal to the live [solve output | diag] bit for bit, every
+    pass equal to the first, the frontend's diagnostics equal to the live
+    ones, the solve mode equal to the full one, one Harris launch per
+    replayed frame and octave in the timed passes of modes full and
+    frontend and none in mode solve, the system unchanged, and no copy of
+    REPLAY_COPY_LIMIT bytes or more in the profiled pass. Returns the
+    kernels' launch counts over the phase."""
+    from okvis2_torch.ops.harris_cuda import harris_nms_cuda
+    from okvis2_torch.pipeline import device_replay as dr
+
+    tag = "[device-loop replay]"
+    slam = cap["slam"]
+    records = cap["records"][-REPLAY_FRAMES:]
+    n = len(records)
+    assert n == REPLAY_FRAMES, n
+    n_oct = slam.frontend.cfg.detection.octaves
+    sets = collections.Counter(len(set(r["set_sids"])) for r in records)
+    before = system_state(slam)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    harris_nms_cuda.launches = 0
+    res = {mode: dr.replay_device_loop(slam, records, n_pass=REPLAY_PASSES, mode=mode,
+                                       census=REPLAY_CENSUS if mode == "full" else 0)
+           for mode in dr.MODES}
+    torch.cuda.synchronize()
+    launches = harris_nms_cuda.launches
+    secs = time.perf_counter() - t0
+    assert_same_state(before, system_state(slam))
+
+    full, fe, so = res["full"], res["frontend"], res["solve"]
+    for i, r in enumerate(records):
+        live = dr.live_output(r)
+        got = full["first"][i].cpu().numpy()
+        assert got.dtype == live.dtype and np.array_equal(got, live), (
+            f"replay frame {i} (state {r['sid']}): [solve | diag] differs from the live run, "
+            f"max abs {np.abs(got.astype(np.float64) - live).max():.3e}")
+        for mode in dr.MODES:
+            assert torch.equal(res[mode]["outputs"][i], res[mode]["first"][i]), (mode, i)
+        assert torch.equal(fe["first"][i], r["diag"]), f"frontend mode, frame {i}"
+        assert torch.equal(so["first"][i], full["first"][i]), f"solve mode, frame {i}"
+    timed = REPLAY_PASSES * n * n_oct
+    assert full["harris_launches"] == fe["harris_launches"] == timed, (
+        full["harris_launches"], fe["harris_launches"], timed)
+    assert so["harris_launches"] == 0, so["harris_launches"]
+    # warm + timed passes of two modes, the solve mode's fixing pass, the census
+    assert launches == n_oct * (2 * (1 + REPLAY_PASSES) * n + n + REPLAY_CENSUS), launches
+    tr = full["transfers"]
+    assert tr["max_copy_bytes"] < REPLAY_COPY_LIMIT, (
+        "a copy of >= 1 KB in the replay, or one the device recorded no size for: "
+        + json.dumps(tr["copies"] + tr["unsized"]))
+
+    log(f"{tag} {n} records of {cap['tag']} (states {records[0]['sid']}-{records[-1]['sid']}; "
+        f"distinct sets appended per solve {json.dumps(dict(sets))}), {REPLAY_PASSES} timed passes "
+        f"per mode after a warm one, every input staged on the card: first full pass equal to "
+        f"the live [solve | diag] bit for bit on every frame, every pass equal to the first, "
+        f"frontend diagnostics equal to the live ones, solve mode equal to full; harris_nms "
+        f"launches per replayed frame in the timed passes: full "
+        f"{full['harris_launches'] / (REPLAY_PASSES * n):g}, frontend "
+        f"{fe['harris_launches'] / (REPLAY_PASSES * n):g}, solve "
+        f"{so['harris_launches'] / (REPLAY_PASSES * n):g}; the system unchanged; "
+        f"{secs:.1f} s in all ({card})")
+    log(f"{tag} frames/s: full {full['fps']:.3f}, frontend {fe['fps']:.3f}, solve "
+        f"{so['fps']:.3f}; the live pipelined loop (phase 9, process_frame over the steady "
+        f"frames) {cap['fps']:.3f} ({card})")
+    log(f"{tag} transfers in one profiled full pass over the last {REPLAY_CENSUS} record(s): "
+        f"{tr['copies_per_frame']:g} copies and {tr['syncs_per_frame']:g} host "
+        f"synchronisations per frame, largest copy {tr['max_copy_bytes']} bytes")
+    per = REPLAY_CENSUS
+    log(f"{tag} copies per frame by cause " + json.dumps(
+        [dict(c, count=c["count"] / per) for c in tr["copies"] + tr["unsized"]]))
+    log(f"{tag} synchronisations per frame by cause " + json.dumps(
+        [dict(c, count=c["count"] / per) for c in tr["syncs"]]))
+    return {"harris_nms": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA card", file=sys.stderr)
@@ -2896,14 +3091,17 @@ def main():
     kernels = phase_kernels(imgs)
     det_cfg = phase_frontend(imgs)
     window = phase_solve()
+    phase_mixed_rig()
     launches = phase_hotpath(imgs, det_cfg, window, card)
     done("6 hot path")
     launches_tracking = phase_tracking(card)
     done("7 tracking")
     launches_slam = {name: phase_slam(card, name, d) for name, d in SLAM_DRIVES.items()}
     done("8 slam")
-    launches_slam.update({name: phase_pipelined(card, name, d)
-                          for name, d in PIPELINED_DRIVES.items()})
+    captured = None
+    for name, d in PIPELINED_DRIVES.items():
+        launches_slam[name], cap = phase_pipelined(card, name, d)
+        captured = cap or captured
     done("9 slam pipelined")
     sessions = {}
     for name, d in LOOP_DRIVES.items():
@@ -2928,6 +3126,8 @@ def main():
     done("16 native loader")
     phase_scnn(card)
     done("17 fast-scnn")
+    launches_slam["device-loop replay"] = phase_replay(card, captured)
+    done("18 device-loop replay")
     for k in kernels:
         by_phase = {"hot path": launches[k["name"]], "tracking": launches_tracking[k["name"]]}
         by_phase.update({name: n[k["name"]] for name, n in launches_slam.items()})

@@ -13,6 +13,8 @@ packed in int64 and returned as int32 with the identical bits.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -126,6 +128,16 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _tables(dtype: torch.dtype, device: torch.device):
+    """The pattern [P,2], the comparison pairs [512,2] and each ring's
+    member indices on ``device``, copied there once: a copy per call cost
+    each image an 8 KB upload and a synchronisation."""
+    return (torch.as_tensor(_PATTERN, dtype=dtype, device=device),
+            torch.as_tensor(_PAIRS, dtype=torch.long, device=device),
+            tuple(torch.as_tensor(m, dtype=torch.long, device=device) for m in _RING_MEMBERS))
+
+
 def describe_keypoints(
     image: torch.Tensor,  # [H,W] float
     xy: torch.Tensor,  # [N,2]
@@ -144,8 +156,7 @@ def describe_keypoints(
     dtype = image.dtype
     dev = image.device
     N = xy.shape[0]
-    pattern = torch.as_tensor(_PATTERN, dtype=dtype, device=dev)  # [P,2]
-    pairs = torch.as_tensor(_PAIRS, dtype=torch.long, device=dev)
+    pattern, pairs, ring_idx = _tables(dtype, dev)  # [P,2], [512,2], per ring
 
     blurred = [_box_blur(image, 2 * r + 1) for r in range(_NUM_RINGS)]
     scale = (size / 9.0)[:, None, None]  # pattern defined for size 9
@@ -157,9 +168,8 @@ def describe_keypoints(
         )  # [N,2,2]
         pts = torch.einsum("nij,pj->npi", rot, pattern) * scale + xy[:, None, :]
         vals = torch.zeros(pts.shape[:2], dtype=dtype, device=dev)
-        for r, members in enumerate(_RING_MEMBERS):
+        for r, idx in enumerate(ring_idx):
             sampler = bilinear_sample if r == 0 else nearest_sample
-            idx = torch.as_tensor(members, dtype=torch.long, device=dev)
             vals[:, idx] = sampler(blurred[r], pts[:, idx, :])
         return vals  # [N,P]
 

@@ -65,8 +65,13 @@ over the mesh's process group; every rank calls it on the same session.
 Debug CSV taps (``set_imu_csv_file``, ``set_tracks_csv_file``;
 ViInterface::setImuCsvFile / setTracksCsvFile) write each IMU sample as it
 is added and each frame's tracking record as its callbacks run, in the JAX
-package's format; the files are line-buffered. Not ported here: the JAX
-bench's frame capture for its device-loop replay.
+package's format; the files are line-buffered.
+
+Frame capture (``_bench_record``, the JAX bench's hook): when it is a list,
+the pipelined loop appends one record per frame of what the frame's
+dispatches read (``device_replay.capture``), and
+``device_replay.replay_device_loop`` runs those frames again with every
+input already on the device. Absent or None, nothing is recorded.
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ from okvis2_torch.graph.estimator import Estimator, EstimatorConfig
 from okvis2_torch.imu.preintegration import ImuParameters
 from okvis2_torch.core import se3_np
 from okvis2_torch.models import suppression
+from okvis2_torch.pipeline import device_replay
 from okvis2_torch.pipeline.component_io import load_component, save_component
 from okvis2_torch.pipeline.final_ba import do_final_ba
 from okvis2_torch.pipeline.frontend_pipeline import Frontend, FrontendConfig
@@ -136,6 +142,9 @@ class SlamSystem:
         self._pending_kf: Optional[dict] = None  # a keyframe's deferred extras
         # test hook: keep at least this many frames in flight
         self._force_min_pending = 0
+        # frame capture for the device-loop replay (device_replay): a list
+        # takes one record per pipelined frame
+        self._bench_record: Optional[list] = None
         # pose-correction epochs: every host-pose rewrite outside the solve
         # flow appends an entry (a rigid 7-vector, or None)
         self._corr_epoch = 0
@@ -323,6 +332,11 @@ class SlamSystem:
             sets = [{"sid": p["sid"], "slot_lid": p["ctx"]["slot_lid"]}
                     for p in self._pending_frames] + [{"sid": sid, "slot_lid": prep["slot_lid"]}]
             prob_np, scfg, aux = est.prepare_fused_solve(sid, self.frontend.table, sets)
+        record = self._bench_record
+        if record is not None:
+            # what the dispatch reads and then replaces or advances
+            table_in = (self.frontend.table.signs, self.frontend.table.valid)
+            gen_state = self.frontend._gen.get_state()
         with SwitchableTimer("2 upload + dispatches"):
             # the upload first: a copy from pageable memory waits for the
             # stream, which the frame program would hold
@@ -332,6 +346,8 @@ class SlamSystem:
             # padding sets are disabled by their all -1 slot maps
             match_sets += [ctx["match"]] * (MAX_APPEND_SETS - len(match_sets))
             job = est.dispatch_fused_solve(problem, aux_dev, match_sets, ctx["diag"], scfg)
+        if record is not None:
+            record.append(device_replay.capture(self, prep, table_in, gen_state, ctx, job))
         self._pending_frames.append({
             "t": t, "sid": sid, "ctx": ctx, "job": job, "n_sets": aux["n_sets"],
             "solve_t0": est._solve_t0, "slot_of": dict(est._slot_of),

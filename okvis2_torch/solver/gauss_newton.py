@@ -69,21 +69,45 @@ def _T(pose7: torch.Tensor) -> Transformation:
     return Transformation(r=pose7[..., :3], q=pose7[..., 3:7])
 
 
+def _homogeneous(cameras) -> bool:
+    """One distortion class and one image size across the rig."""
+    c0 = cameras[0]
+    return all(type(c.distortion) is type(c0.distortion) and c.image_size == c0.image_size
+               for c in cameras[1:])
+
+
 def _cameras_per_obs(problem: WindowProblem, cameras):
     """One camera whose parameter tensors are gathered per observation by
     ``obs_cam`` ([O,2] focal/center, [O,k] distortion), so each
-    observation is evaluated once with its own camera. The rig must be
-    homogeneous (one distortion class, one image size)."""
+    observation is evaluated once with its own camera. For homogeneous
+    rigs (``_homogeneous``)."""
     c0 = cameras[0]
-    for c in cameras[1:]:
-        if type(c.distortion) is not type(c0.distortion) or c.image_size != c0.image_size:
-            raise NotImplementedError(
-                "okvis2_torch solver: heterogeneous camera rigs are not ported yet"
-            )
     focal = torch.stack([c.focal for c in cameras])[problem.obs_cam]
     center = torch.stack([c.center for c in cameras])[problem.obs_cam]
     k = torch.stack([c.distortion.params().to(focal) for c in cameras])[problem.obs_cam]
     return c0, focal, center, k
+
+
+def _camera_passes(problem: WindowProblem, cameras):
+    """The reprojection's evaluations: [(camera, focal [O,2], center [O,2],
+    k [O,k], rows)]. A homogeneous rig is one pass over every row with
+    ``_cameras_per_obs``'s gathered parameters (rows None). A rig whose
+    cameras differ in distortion class or image size (the JAX package's
+    masked per-camera fallback) is one pass per camera over every row
+    with that camera's own parameters; ``rows`` [O] marks the rows it
+    owns (``obs_cam == ci``), whose results the caller selects. Fixed
+    shapes, no host read."""
+    if _homogeneous(cameras):
+        return [(*_cameras_per_obs(problem, cameras), None)]
+    O = problem.obs_cam.shape[0]
+    return [(c, c.focal.expand(O, -1), c.center.expand(O, -1),
+             c.distortion.params().to(c.focal).expand(O, -1), problem.obs_cam == ci)
+            for ci, c in enumerate(cameras)]
+
+
+def _select_rows(rows, new, old):
+    """``new`` where ``rows`` [O] is set, else ``old`` (any trailing shape)."""
+    return torch.where(rows.reshape(rows.shape + (1,) * (new.dim() - 1)), new, old)
 
 
 def _obs_mask(problem: WindowProblem) -> torch.Tensor:
@@ -124,13 +148,18 @@ _from_first_rank.calls = 0
 
 def _reproj_residuals(problem: WindowProblem, cameras):
     """All reprojection residuals [O,2] (whitened, unrobustified) + mask."""
-    c0, focal, center, k = _cameras_per_obs(problem, cameras)
-    cam = c0.with_params(focal, center, k)
     T_CW = (_T(problem.pose[problem.obs_state])
             @ _T(problem.extrinsics[problem.obs_cam])).inverse()
     hp_C = T_CW.apply_homogeneous(problem.landmarks[problem.obs_lm])
-    uv_hat, valid = cam.project_homogeneous(hp_C)
-    r = (uv_hat - problem.obs_uv) * problem.obs_sqrt_info[:, None]
+    r = torch.zeros_like(problem.obs_uv)
+    valid = torch.zeros_like(problem.obs_mask)
+    for c, focal, center, k, rows in _camera_passes(problem, cameras):
+        uv_hat, valid_c = c.with_params(focal, center, k).project_homogeneous(hp_C)
+        r_c = (uv_hat - problem.obs_uv) * problem.obs_sqrt_info[:, None]
+        if rows is None:
+            r, valid = r_c, valid_c
+        else:
+            r, valid = _select_rows(rows, r_c, r), _select_rows(rows, valid_c, valid)
     sel = _obs_mask(problem) & valid
     return torch.where(sel[:, None], r, torch.zeros_like(r)), sel
 
@@ -295,31 +324,35 @@ def _scatter_states(J_a, J_b, oh_a, oh_b, width):
 def _reproj_val_jac(problem: WindowProblem, cameras):
     """Per-observation residual [O,2], validity [O] and Jacobians against
     the pose [O,2,6], extrinsics [O,2,6] and landmark [O,2,3]."""
-    c0, focal, center, k = _cameras_per_obs(problem, cameras)
     dtype, dev = problem.pose.dtype, problem.pose.device
     z6 = torch.zeros(6, dtype=dtype, device=dev)
     z3 = torch.zeros(3, dtype=dtype, device=dev)
+    out = None
+    for c0, focal, center, k, rows in _camera_passes(problem, cameras):
 
-    def one(f, c, kk, p7, e7, hp, uv, w):
-        cam = c0.with_params(f, c, kk)
+        def one(f, c, kk, p7, e7, hp, uv, w):
+            cam = c0.with_params(f, c, kk)
 
-        def res(dp, de, dl):
-            T_WS = _T(_oplus_pose(p7, dp))
-            T_SC = _T(_oplus_pose(e7, de))
-            T_CW = (T_WS @ T_SC).inverse()
-            hp_C = T_CW.apply_homogeneous(_oplus_hp(hp, dl))
-            uv_hat, valid = cam.project_homogeneous(hp_C)
-            r = torch.where(valid, (uv_hat - uv) * w, torch.zeros_like(uv_hat))
-            return r, (r, valid)
+            def res(dp, de, dl):
+                T_WS = _T(_oplus_pose(p7, dp))
+                T_SC = _T(_oplus_pose(e7, de))
+                T_CW = (T_WS @ T_SC).inverse()
+                hp_C = T_CW.apply_homogeneous(_oplus_hp(hp, dl))
+                uv_hat, valid = cam.project_homogeneous(hp_C)
+                r = torch.where(valid, (uv_hat - uv) * w, torch.zeros_like(uv_hat))
+                return r, (r, valid)
 
-        (jp, je, jl), (r, valid) = jacfwd(res, argnums=(0, 1, 2), has_aux=True)(z6, z6, z3)
-        return r, valid, jp, je, jl
+            (jp, je, jl), (r, valid) = jacfwd(res, argnums=(0, 1, 2), has_aux=True)(z6, z6, z3)
+            return r, valid, jp, je, jl
 
-    return vmap(one)(
-        focal, center, k,
-        problem.pose[problem.obs_state], problem.extrinsics[problem.obs_cam],
-        problem.landmarks[problem.obs_lm], problem.obs_uv, problem.obs_sqrt_info,
-    )
+        out_c = vmap(one)(
+            focal, center, k,
+            problem.pose[problem.obs_state], problem.extrinsics[problem.obs_cam],
+            problem.landmarks[problem.obs_lm], problem.obs_uv, problem.obs_sqrt_info,
+        )
+        out = out_c if out is None else tuple(
+            _select_rows(rows, a, b) for a, b in zip(out_c, out))
+    return out
 
 
 @forward_ad_locked

@@ -7,7 +7,8 @@ dataset app's config reader, PNG round trip and a 5-frame app run on the
 card at configs/euroc.yaml; the ROS2 node's 5-frame bag replay there, on
 the card against the CPU; the solver's dense path repeating bit for bit in
 float32; one float64 Fast-SCNN training step on the card against the CPU;
-the native EuRoC prefetcher built and read on the card's machine.
+the native EuRoC prefetcher built and read on the card's machine; the
+pipelined loop's frame capture replayed on the card equal to the live run.
 
 A hand-written CUDA kernel has no CPU mode, so every test here is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it also
@@ -426,6 +427,51 @@ def test_pipelined_loop_on_card(cuda, monkeypatch):
     # the first frames are dispatched before any frame is finished, against
     # an empty map; later solves append three frames' matches
     assert n_three >= 3, n_three
+
+
+@pytest.mark.parametrize("min_pending", [0, 2])
+def test_device_replay_equals_live_on_card(cuda, min_pending):
+    """The frame capture and its device-loop replay on the card
+    (``pipeline/device_replay.py``): the small drive through the pipelined
+    loop at its own lag and with two frames kept in flight, RANSAC drawing
+    from the frontend's generator on the card, then every record replayed
+    inline on the current stream in the three modes. The first full pass
+    equals the live [solve output | diag] (solved on the solve worker's
+    stream) bit for bit, the second pass the first, the frontend mode's
+    diagnostics the live ones, the solve mode the full mode; one Harris
+    launch per frame in the timed pass of modes full and frontend, none in
+    mode solve; the system unchanged; no host<->device copy of 1 KB or more
+    in a profiled pass."""
+    import chip_smoke
+    from okvis2_torch.pipeline import device_replay as dr
+
+    frames, imu = _small_drive_frames()
+    slam = _slam_system(cuda, pipelined=True, min_pending=min_pending)
+    slam.frontend.ransac_sampler = None
+    slam._bench_record = []
+    _drive(slam, frames, imu)
+    records = slam._bench_record
+    assert len(records) == len(frames)
+    before = chip_smoke.system_state(slam)
+    res = {mode: dr.replay_device_loop(slam, records, n_pass=1, mode=mode,
+                                       census=2 if mode == "full" else 0)
+           for mode in dr.MODES}
+    chip_smoke.assert_same_state(before, chip_smoke.system_state(slam))
+    for i, r in enumerate(records):
+        live = dr.live_output(r)
+        got = res["full"]["first"][i].cpu().numpy()
+        assert np.array_equal(got, live), (i, np.abs(got - live).max())
+        for mode in dr.MODES:
+            assert torch.equal(res[mode]["outputs"][i], res[mode]["first"][i]), (mode, i)
+        assert torch.equal(res["frontend"]["first"][i], r["diag"]), i
+        assert torch.equal(res["solve"]["first"][i], res["full"]["first"][i]), i
+    assert res["full"]["harris_launches"] == res["frontend"]["harris_launches"] == len(frames)
+    assert res["solve"]["harris_launches"] == 0
+    tr = res["full"]["transfers"]
+    print(f"replay on the card, {min_pending} kept in flight: frames/s " + ", ".join(
+        f"{m} {res[m]['fps']:.3f}" for m in dr.MODES) + f"; per frame {tr['copies_per_frame']:g} "
+        f"copies, {tr['syncs_per_frame']:g} synchronisations: {tr['copies']} {tr['syncs']}")
+    assert tr["max_copy_bytes"] < 1024, tr
 
 
 def test_pipelined_solve_error_reaches_caller(cuda, monkeypatch):

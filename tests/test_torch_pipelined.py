@@ -26,7 +26,10 @@
     within 1e-3 m, landmark counts within 3, ATE within 1e-3 m of the JAX
     run's and below 0.10 m.
 (f) The port against itself: two deep-lag runs equal within 1e-12 (a race
-    between the solve worker and the host would show here); deep lag
+    between the solve worker and the host would show here), and bit for bit
+    where only one has the frame capture (``_bench_record``) set, whose
+    records match the JAX package's capture in count, frames, iteration
+    budgets and predicted poses; deep lag
     against the port's synchronous loop within 0.03 m of ATE
     (``tests/test_e2e_vio.py:64``); and ``n_obs_inserted`` of the deep-lag
     run at least 0.9x that of the port's pipelined run at its own lag, the
@@ -466,23 +469,26 @@ def _carrier_program_f64(cameras, carrier, tab_signs, tab_valid, prev_signs, kf_
         min_inliers, use_ransac, do_motion_stereo, do_ff, gravity_aligned)
 
 
-def _recording(cls, rec):
+def _recording(cls, rec, bench=None):
     """``cls`` recording (sid, pose, keyframe flag, landmark count) at each
-    frame's (lagged) callback."""
+    frame's (lagged) callback; with ``bench``, a list, the frame capture
+    for the device-loop replay set to it."""
 
     class Recording(cls):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.set_optimised_graph_callback(lambda t, sid, pose, tr: rec.append(
                 (sid, pose, tr.is_keyframe, len(self.estimator.landmarks))))
+            if bench is not None:
+                self._bench_record = bench
 
     return Recording
 
 
-def _port_run(rec=None, **kw):
+def _port_run(rec=None, bench=None, **kw):
     with pytest.MonkeyPatch.context() as mp:
         if rec is not None:
-            mp.setattr(tsr, "SlamSystem", _recording(tslam.SlamSystem, rec))
+            mp.setattr(tsr, "SlamSystem", _recording(tslam.SlamSystem, rec, bench))
         return tsr.run_synthetic_vio(estimator_config=test_.EstimatorConfig(**EST),
                                      dtype=torch.float64, device="cpu",
                                      ransac_sampler=_jax_indices, **DRIVE, **kw)
@@ -490,19 +496,20 @@ def _port_run(rec=None, **kw):
 
 @pytest.fixture(scope="module")
 def deep_lag():
-    """Both packages' deep-lag pipelined drives (two frames kept in flight)."""
-    rj, rt = [], []
+    """Both packages' deep-lag pipelined drives (two frames kept in flight),
+    each with its frame capture set."""
+    rj, rt, bj, bt = [], [], [], []
     shim = type("np64", (), {k: getattr(np, k) for k in dir(np) if not k.startswith("__")})
     shim.float32 = np.float64
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnp, "float32", jnp.float64)
         mp.setattr(jfp, "np", shim)
         mp.setattr(jfp, "_frame_associate_from_carrier", _carrier_program_f64)
-        mp.setattr(jsr, "SlamSystem", _recording(jslam.SlamSystem, rj))
+        mp.setattr(jsr, "SlamSystem", _recording(jslam.SlamSystem, rj, bj))
         jres = jsr.run_synthetic_vio(estimator_config=jest.EstimatorConfig(**EST),
                                      pipelined=True, force_min_pending=2, **DRIVE)
-    tres = _port_run(rt, pipelined=True, force_min_pending=2)
-    return {"jax": (jres, rj), "port": (tres, rt)}
+    tres = _port_run(rt, bt, pipelined=True, force_min_pending=2)
+    return {"jax": (jres, rj), "port": (tres, rt), "capture": (bj, bt)}
 
 
 def test_pipelined_drive_matches(deep_lag):
@@ -527,6 +534,21 @@ def test_pipelined_drive_matches(deep_lag):
     assert not slam._pending_frames and slam._pending_kf is None  # finish() drained
 
 
+def test_capture_matches_jax(deep_lag):
+    """Both packages' frame captures on the deep-lag drive: one record per
+    frame, and per record the frame, its iteration budget and its
+    predicted pose (the first 7 words of the JAX carrier's float section,
+    float64 words here, see ``_carrier_program_f64``)."""
+    bj, bt = deep_lag["capture"]
+    assert len(bj) == len(bt) == deep_lag["port"][0]["frames"] == 6
+    for j, t in zip(bj, bt):
+        assert j["prep"]["sid"] == t["sid"]
+        assert j["scfg"].max_iterations == t["scfg"].max_iterations, t["sid"]
+        n_img = j["prep"]["imgs_u8"].nbytes
+        T_jax = j["carrier"][n_img:n_img + 56].view(np.float64)
+        np.testing.assert_allclose(t["frame_inputs"]["T_WS7"], T_jax, rtol=0, atol=POSE_TOL)
+
+
 @pytest.fixture(scope="module")
 def port_runs(deep_lag):
     """The port alone: a second deep-lag run, the loop's own lag, and the
@@ -541,6 +563,15 @@ def test_deep_lag_runs_are_reproducible(port_runs):
     for (t1, p1), (t2, p2) in zip(tr1, tr2):
         assert t1 == t2
         np.testing.assert_allclose(p2, p1, rtol=0, atol=1e-12)
+
+
+def test_capture_changes_nothing(port_runs):
+    """The deep-lag run with the frame capture set and the one without
+    give the same trajectory bit for bit; without it nothing is kept."""
+    assert port_runs["deep2"]["slam"]._bench_record is None
+    assert len(port_runs["deep"]["slam"]._bench_record) == 6
+    for (t1, p1), (t2, p2) in zip(port_runs["deep"]["est_traj"], port_runs["deep2"]["est_traj"]):
+        assert t1 == t2 and np.array_equal(p1, p2)
 
 
 def test_deep_lag_against_the_synchronous_loop(port_runs):
